@@ -1,0 +1,130 @@
+"""The hand-written CUDA kernels of the ANS coder, and their loader.
+
+Four kernels, one source each under ``csrc/``, all one thread per lane
+with the step loop inside the thread (the Pallas ``fori_loop``):
+
+  * ``push_emit``         - ``repro/kernels/ans/kernel.py:35 _push_kernel``;
+  * ``pop_dyntable_emit`` - ``kernel.py:196 _pop_dyntable_kernel``;
+  * ``pop_grid_emit``     - ``kernel.py:266 _pop_grid_kernel`` (kinds
+                            ``gaussian`` and ``uniform``);
+  * ``grid_starts``       - the push side's Gaussian starts, XLA code in
+                            the reference (``codecs/compile.py:357``); a
+                            kernel here so that encoder and decoder share
+                            ``common/ndtr.cuh``.
+
+Build: ``torch.utils.cpp_extension.load`` compiles the four sources and
+``csrc/bindings.cpp`` (typed ``torch::Tensor`` entry points that check
+their tensors, hold a device guard, allocate the outputs and launch on
+PyTorch's current stream) into one extension on first use, into
+``build/kernels/`` of the checkout; ninja compiles the sources in
+parallel and rebuilds only what changed. The flags keep the float
+arithmetic IEEE and uncontracted (``--fmad=false -prec-div=true
+-ftz=false``, no fast math), which the bit-exact CDF needs. Each wrapper
+here counts its launch in ``LAUNCHES``. A build or launch failure
+raises: nothing falls back to the plain versions (``twin.py``).
+"""
+
+from __future__ import annotations
+
+import os
+from typing import Dict
+
+import torch
+
+_HERE = os.path.dirname(os.path.abspath(__file__))
+_CSRC = os.path.join(_HERE, "csrc")
+_COMMON = os.path.join(os.path.dirname(_HERE), "common")
+
+#: ``build/kernels`` of the checkout that holds ``src/repro_torch``
+BUILD_DIR = os.path.normpath(
+    os.path.join(_HERE, "..", "..", "..", "..", "build", "kernels"))
+
+#: kernel name -> source file in csrc/
+SOURCES = {
+    "push_emit": "push.cu",
+    "pop_dyntable_emit": "pop_dyntable.cu",
+    "pop_grid_emit": "pop_grid.cu",
+    "grid_starts": "grid_starts.cu",
+}
+
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "--fmad=false",
+              "-prec-div=true", "-ftz=false", "-O3"]
+
+#: launches per kernel (the grid pop per kind) since ``reset_launches()``
+LAUNCHES: Dict[str, int] = {
+    "push_emit": 0, "pop_dyntable_emit": 0, "pop_grid_emit/gaussian": 0,
+    "pop_grid_emit/uniform": 0, "grid_starts": 0}
+
+_EXT = None
+
+
+def reset_launches() -> None:
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0
+
+
+def build():
+    """Build the extension if it is not built yet, and load it. Raises
+    with the compiler's output when a build fails."""
+    global _EXT
+    if _EXT is None:
+        from torch.utils import cpp_extension
+
+        os.makedirs(BUILD_DIR, exist_ok=True)
+        _EXT = cpp_extension.load(
+            name="repro_torch_ans_kernels",
+            sources=[os.path.join(_CSRC, f) for f in
+                     ("bindings.cpp", *SOURCES.values())],
+            extra_cflags=["-O2"], extra_cuda_cflags=NVCC_FLAGS,
+            extra_include_paths=[_COMMON], build_directory=BUILD_DIR)
+    return _EXT
+
+
+def _launch(counter: str, fn: str, head: torch.Tensor, *args):
+    if head.device.type != "cuda":
+        raise ValueError(f"kernels.ans: the kernels take CUDA tensors, got "
+                         f"{head.device}")
+    out = getattr(build(), fn)(head, *args)
+    if head.numel():
+        LAUNCHES[counter] += 1
+    return tuple(out)
+
+
+def push_emit(head: torch.Tensor, starts: torch.Tensor, freqs: torch.Tensor,
+              precision: int):
+    """head int64[L]; starts/freqs int32[S, L] -> (head int64[L], chunks
+    int32[S, L], need int32[S, L])."""
+    return _launch("push_emit", "push_emit", head, starts, freqs,
+                   precision)
+
+
+def pop_dyntable_emit(head: torch.Tensor, tables: torch.Tensor,
+                      feed: torch.Tensor, precision: int):
+    """head int64[L]; tables int32[S, L, A+1]; feed int32[S, L] -> (head,
+    syms int32[S, L], reads int32[L])."""
+    return _launch("pop_dyntable_emit", "pop_dyntable_emit", head, tables,
+                   feed, precision)
+
+
+def pop_grid_emit(head: torch.Tensor, mu: torch.Tensor, sigma: torch.Tensor,
+                  feed: torch.Tensor, edges: torch.Tensor, kind: str,
+                  lat_bits: int, precision: int):
+    """head int64[L]; mu/sigma float32[S, L] (unused for ``uniform``);
+    feed int32[S, L]; edges float32[K+1] -> (head, idx int32[S, L],
+    reads int32[L])."""
+    from repro_torch.kernels.ans.twin import check_kind
+
+    check_kind(kind)
+    if kind == "gaussian":
+        return _launch("pop_grid_emit/gaussian", "pop_grid_gaussian", head,
+                       mu, sigma, feed, edges, lat_bits, precision)
+    return _launch("pop_grid_emit/uniform", "pop_grid_uniform", head, feed,
+                   lat_bits, precision)
+
+
+def grid_starts(idx: torch.Tensor, mu: torch.Tensor, sigma: torch.Tensor,
+                edges: torch.Tensor, lat_bits: int, precision: int):
+    """idx int32[S, L]; mu/sigma float32[S, L]; edges float32[K+1] ->
+    (start int32[S, L], freq int32[S, L])."""
+    return _launch("grid_starts", "grid_starts", idx, mu, sigma, edges,
+                   lat_bits, precision)

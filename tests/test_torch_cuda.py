@@ -1,0 +1,98 @@
+"""The hand-written CUDA kernels against their plain PyTorch versions
+(``repro_torch.kernels.ans.twin``), bit for bit, on the card.
+
+Every test here needs an NVIDIA GPU (marker ``cuda``) and skips without
+one. The file imports neither JAX nor ``repro``, so it runs on a machine
+that has only PyTorch and the CUDA toolkit::
+
+    PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
+"""
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from repro_torch.codecs import container  # noqa: E402
+from repro_torch.core import discretize  # noqa: E402
+from repro_torch.kernels.ans import ops, twin  # noqa: E402
+
+STEPS = 6
+
+
+@pytest.fixture
+def kernel():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    from repro_torch.kernels.ans import kernel
+    kernel.build()
+    return kernel
+
+
+def _inputs(lanes, precision, seed=0):
+    rng = np.random.default_rng(seed + lanes * 31 + precision)
+    total = 1 << precision
+    lat_bits = 10 if precision == 16 else 8
+    f1 = rng.integers(1, total - 1, (STEPS, lanes))
+    sym = rng.integers(0, 2, (STEPS, lanes))
+    f0 = total - f1
+    i32 = lambda a: torch.from_numpy(np.ascontiguousarray(a, np.int32))
+    return lat_bits, {
+        "head": torch.from_numpy(rng.integers(1 << 16, 1 << 32, lanes,
+                                              dtype=np.int64)),
+        "starts": i32(np.where(sym == 1, f0, 0)),
+        "freqs": i32(np.where(sym == 1, f1, f0)),
+        "tables": i32(np.stack([np.zeros_like(f1), f0,
+                                np.full_like(f1, total)], -1)),
+        "feed": i32(rng.integers(0, 1 << 16, (STEPS, lanes))),
+        "mu": torch.from_numpy(rng.normal(0.0, 1.5, (STEPS, lanes))
+                               .astype(np.float32)),
+        "sigma": torch.from_numpy(np.exp(rng.uniform(
+            -4.0, 1.0, (STEPS, lanes))).astype(np.float32)),
+        "idx": i32(rng.integers(0, 1 << lat_bits, (STEPS, lanes))),
+    }
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("precision", [12, 16])
+@pytest.mark.parametrize("lanes", [1, 3, 128, 130])
+def test_kernels_match_twin(kernel, lanes, precision):
+    lb, c = _inputs(lanes, precision)
+    g = {k: v.cuda() for k, v in c.items()}
+    e = discretize.edge_table(lb, "cpu")
+    pairs = [
+        (kernel.push_emit(g["head"], g["starts"], g["freqs"], precision),
+         twin.push_emit(c["head"], c["starts"], c["freqs"], precision)),
+        (kernel.pop_dyntable_emit(g["head"], g["tables"], g["feed"],
+                                  precision),
+         twin.pop_dyntable_emit(c["head"], c["tables"], c["feed"],
+                                precision)),
+        (kernel.grid_starts(g["idx"], g["mu"], g["sigma"], e.cuda(), lb,
+                            precision),
+         twin.grid_starts(c["idx"], c["mu"], c["sigma"], e, lb, precision)),
+    ]
+    for kind in ("gaussian", "uniform"):
+        pairs.append((
+            kernel.pop_grid_emit(g["head"], g["mu"], g["sigma"], g["feed"],
+                                 e.cuda(), kind, lb, precision),
+            twin.pop_grid_emit(c["head"], c["mu"], c["sigma"], c["feed"], e,
+                               kind, lb, precision)))
+    torch.cuda.synchronize()
+    for got, want in pairs:
+        for a, b in zip(got, want):
+            assert torch.equal(a.cpu().to(torch.int64), b.to(torch.int64))
+
+
+@pytest.mark.cuda
+def test_ops_launch_the_kernel_and_count_it(kernel):
+    _, c = _inputs(130, 16)
+    stack = container.fresh_stack(130, 96, seed=0, init_chunks=8,
+                                  device="cuda")
+    kernel.reset_launches()
+    ops.push_many(stack, c["starts"].cuda(), c["freqs"].cuda(), 16)
+    assert kernel.LAUNCHES["push_emit"] == 1
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        kernel.push_emit(c["head"], c["starts"], c["freqs"], 16)
+    with pytest.raises(RuntimeError, match="only the kernel runs"):
+        ops.push_many(stack, c["starts"].cuda(), c["freqs"].cuda(), 16,
+                      backend="torch")

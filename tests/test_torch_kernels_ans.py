@@ -1,0 +1,238 @@
+"""The port's ANS kernels against the reference's.
+
+On the CPU: ``twin.py`` and the ``ref.py`` oracle against
+``repro.kernels.ans.xla`` and the Pallas kernels in interpret mode, at
+lanes 1, 3, 128 and 130 and precisions 12 and 16; the dispatched ops
+against ``repro.kernels.ans.ops``. The CUDA kernels themselves are held to
+``twin.py`` on the card by ``tests/test_torch_cuda.py``.
+"""
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import jax  # noqa: E402
+import jax.numpy as jnp  # noqa: E402
+
+from repro.codecs import container as ref_container  # noqa: E402
+from repro.kernels.ans import kernel as ref_kernel  # noqa: E402
+from repro.kernels.ans import ops as ref_ops  # noqa: E402
+from repro.kernels.ans import xla as ref_xla  # noqa: E402
+from repro.kernels.bucketize import kernel as ref_bucketize  # noqa: E402
+from repro_torch.codecs import container  # noqa: E402
+from repro_torch.core import discretize  # noqa: E402
+from repro_torch.kernels import dispatch  # noqa: E402
+from repro_torch.kernels.ans import ops, ref, twin  # noqa: E402
+
+LANES = [1, 3, 128, 130]
+PRECISIONS = [12, 16]
+STEPS = 6
+
+
+def _lat_bits(precision):
+    return 10 if precision == 16 else 8
+
+
+def _inputs(lanes, precision, seed=0):
+    rng = np.random.default_rng(seed + lanes * 31 + precision)
+    total = 1 << precision
+    f1 = rng.integers(1, total - 1, (STEPS, lanes))
+    sym = rng.integers(0, 2, (STEPS, lanes))
+    f0 = total - f1
+    return {
+        "head": rng.integers(1 << 16, 1 << 32, lanes, dtype=np.uint64)
+        .astype(np.uint32),
+        "starts": np.where(sym == 1, f0, 0).astype(np.uint32),
+        "freqs": np.where(sym == 1, f1, f0).astype(np.uint32),
+        "tables": np.stack([np.zeros_like(f1), f0, np.full_like(f1, total)],
+                           -1).astype(np.uint32),
+        "feed": rng.integers(0, 1 << 16, (STEPS, lanes)).astype(np.uint32),
+        "mu": rng.normal(0.0, 1.5, (STEPS, lanes)).astype(np.float32),
+        "sigma": np.exp(rng.uniform(-4.0, 1.0, (STEPS, lanes)))
+        .astype(np.float32),
+        "idx": rng.integers(0, 1 << _lat_bits(precision), (STEPS, lanes))
+        .astype(np.int32),
+    }
+
+
+def _t(a):
+    a = np.asarray(a)
+    return torch.from_numpy(a.astype(np.int64) if a.dtype == np.uint32
+                            else a.copy())
+
+
+def _same(port_out, ref_out):
+    for p, r in zip(port_out, ref_out):
+        np.testing.assert_array_equal(p.numpy().astype(np.int64),
+                                      np.asarray(r).astype(np.int64))
+
+
+def _ref_grid(d, kind, precision, interpret):
+    lb = _lat_bits(precision)
+    edges = ref_bucketize.edge_table(lb) if kind == "gaussian" \
+        else jnp.zeros((2,), jnp.float32)
+    args = (jnp.asarray(d["head"]), jnp.asarray(d["mu"]),
+            jnp.asarray(d["sigma"]), jnp.asarray(d["feed"]), edges, kind, lb,
+            precision)
+    if interpret:
+        return ref_kernel.pop_grid_emit(*args, interpret=True,
+                                        lane_tile=len(d["head"]))
+    return ref_xla.pop_grid_emit(*args)
+
+
+@pytest.mark.parametrize("interpret", [False, True])
+@pytest.mark.parametrize("precision", PRECISIONS)
+@pytest.mark.parametrize("lanes", LANES)
+def test_push_emit_matches_reference(lanes, precision, interpret):
+    d = _inputs(lanes, precision)
+    args = (jnp.asarray(d["head"]), jnp.asarray(d["starts"]),
+            jnp.asarray(d["freqs"]), precision)
+    want = ref_kernel.push_emit(*args, interpret=True, lane_tile=lanes) \
+        if interpret else ref_xla.push_emit(*args)
+    _same(twin.push_emit(_t(d["head"]), _t(d["starts"]), _t(d["freqs"]),
+                         precision), want)
+
+
+@pytest.mark.parametrize("interpret", [False, True])
+@pytest.mark.parametrize("precision", PRECISIONS)
+@pytest.mark.parametrize("lanes", LANES)
+def test_pop_dyntable_emit_matches_reference(lanes, precision, interpret):
+    d = _inputs(lanes, precision)
+    args = (jnp.asarray(d["head"]), jnp.asarray(d["tables"]),
+            jnp.asarray(d["feed"]), precision)
+    want = ref_kernel.pop_dyntable_emit(*args, interpret=True,
+                                        lane_tile=lanes) \
+        if interpret else ref_xla.pop_dyntable_emit(*args)
+    _same(twin.pop_dyntable_emit(_t(d["head"]), _t(d["tables"]),
+                                 _t(d["feed"]), precision), want)
+
+
+@pytest.mark.parametrize("kind", ["gaussian", "uniform"])
+@pytest.mark.parametrize("interpret", [False, True])
+@pytest.mark.parametrize("precision", PRECISIONS)
+@pytest.mark.parametrize("lanes", LANES)
+def test_pop_grid_emit_matches_reference(lanes, precision, interpret, kind):
+    d = _inputs(lanes, precision)
+    lb = _lat_bits(precision)
+    got = twin.pop_grid_emit(_t(d["head"]), _t(d["mu"]), _t(d["sigma"]),
+                             _t(d["feed"]), discretize.edge_table(lb, "cpu"),
+                             kind, lb, precision)
+    _same(got, _ref_grid(d, kind, precision, interpret))
+
+
+@pytest.mark.parametrize("precision", PRECISIONS)
+@pytest.mark.parametrize("lanes", LANES)
+def test_grid_starts_match_reference_cdf(lanes, precision):
+    d = _inputs(lanes, precision)
+    lb = _lat_bits(precision)
+    f = jax.jit(lambda m, s, i: ref_xla._grid_starts_fn(
+        m, s, ref_bucketize.edge_table(lb), "gaussian", lb, precision)(i))
+    mu, sg, idx = (jnp.asarray(d[k]) for k in ("mu", "sigma", "idx"))
+    start = np.asarray(f(mu, sg, idx)).astype(np.int64)
+    freq = np.asarray(f(mu, sg, idx + 1)).astype(np.int64) - start
+    got = twin.grid_starts(_t(d["idx"]), _t(d["mu"]), _t(d["sigma"]),
+                           discretize.edge_table(lb, "cpu"), lb, precision)
+    np.testing.assert_array_equal(got[0].numpy(), start)
+    np.testing.assert_array_equal(got[1].numpy(), freq)
+
+
+def _stacks(lanes, seed=5, chunks=40):
+    with jax.threefry_partitionable(False):
+        r = ref_container.fresh_stack(lanes, 96, seed=seed,
+                                      init_chunks=chunks)
+    return container.fresh_stack(lanes, 96, seed=seed, init_chunks=chunks,
+                                 device="cpu"), r
+
+
+def _same_stack(port, r):
+    for f in ("head", "buf", "ptr", "underflows", "overflows"):
+        np.testing.assert_array_equal(
+            getattr(port, f).numpy().astype(np.int64),
+            np.asarray(getattr(r, f)).astype(np.int64), err_msg=f)
+
+
+@pytest.mark.parametrize("backend", ["torch", "ref"])
+@pytest.mark.parametrize("lanes", LANES)
+def test_ops_match_reference_ops(lanes, backend):
+    """push_many, pop_many_dyn, pop_many_grid on whole stacks, chained:
+    the same stack and symbols as ``repro.kernels.ans.ops`` (xla)."""
+    d = _inputs(lanes, 16, seed=1)
+    port, r = _stacks(lanes)
+    for _ in range(2):     # the second round runs past the clean bits
+        r = ref_ops.push_many(r, jnp.asarray(d["starts"]),
+                              jnp.asarray(d["freqs"]), 16, backend="xla")
+        port = ops.push_many(port, _t(d["starts"]), _t(d["freqs"]), 16,
+                             backend=backend)
+        _same_stack(port, r)
+        r, rs = ref_ops.pop_many_grid(r, "gaussian", jnp.asarray(d["mu"]),
+                                      jnp.asarray(d["sigma"]), STEPS, 10, 16,
+                                      backend="xla")
+        port, ps = ops.pop_many_grid(port, "gaussian", _t(d["mu"]),
+                                     _t(d["sigma"]), STEPS, 10, 16,
+                                     backend=backend)
+        _same_stack(port, r)
+        np.testing.assert_array_equal(ps.numpy(), np.asarray(rs))
+        r, rs = ref_ops.pop_many_dyn(r, jnp.asarray(d["tables"]), 16,
+                                     backend="xla")
+        port, ps = ops.pop_many_dyn(port, _t(d["tables"]), 16,
+                                    backend=backend)
+        _same_stack(port, r)
+        np.testing.assert_array_equal(ps.numpy(), np.asarray(rs))
+        r, rs = ref_ops.pop_many_grid(r, "uniform", jnp.zeros(()),
+                                      jnp.zeros(()), STEPS, 10, 16,
+                                      backend="xla")
+        port, ps = ops.pop_many_grid(port, "uniform", None, None, STEPS, 10,
+                                     16, backend=backend)
+        _same_stack(port, r)
+        np.testing.assert_array_equal(ps.numpy(), np.asarray(rs))
+
+
+def test_push_many_counts_overflow_like_the_reference():
+    lanes = 3
+    d = _inputs(lanes, 16, seed=2)
+    with jax.threefry_partitionable(False):
+        r = ref_container.fresh_stack(lanes, 2, seed=0)
+    port = container.fresh_stack(lanes, 2, seed=0, device="cpu")
+    for _ in range(4):
+        r = ref_ops.push_many(r, jnp.asarray(d["starts"]),
+                              jnp.asarray(d["freqs"]), 16, backend="xla")
+        port = ops.push_many(port, _t(d["starts"]), _t(d["freqs"]), 16)
+        _same_stack(port, r)
+    assert int(port.overflows.sum()) > 0
+
+
+def test_ref_oracle_matches_twin_ops():
+    d = _inputs(128, 16, seed=3)
+    a, _ = _stacks(128, seed=1)
+    b, _ = _stacks(128, seed=1)
+    a = ref.push_many_ref(a, _t(d["starts"]), _t(d["freqs"]), 16)
+    b = ops.push_many(b, _t(d["starts"]), _t(d["freqs"]), 16,
+                      backend="torch")
+    a, sa = ref.pop_many_grid_ref(a, "gaussian", _t(d["mu"]),
+                                  _t(d["sigma"]), STEPS, 10, 16)
+    b, sb = ops.pop_many_grid(b, "gaussian", _t(d["mu"]), _t(d["sigma"]),
+                              STEPS, 10, 16, backend="torch")
+    assert torch.equal(sa, sb)
+    for f in ("head", "buf", "ptr", "underflows"):
+        assert torch.equal(getattr(a, f), getattr(b, f)), f
+
+
+def test_dispatch_precedence_and_refusals(monkeypatch):
+    cpu = torch.device("cpu")
+    monkeypatch.delenv("REPRO_KERNEL_BACKEND", raising=False)
+    assert dispatch.resolve("push_many", cpu) == "torch"
+    with dispatch.use_backend("ref"):
+        assert dispatch.resolve("push_many", cpu) == "ref"
+        assert dispatch.resolve("push_many", cpu, "torch") == "torch"
+        monkeypatch.setenv("REPRO_KERNEL_BACKEND", "torch")
+        assert dispatch.resolve("push_many", cpu) == "torch"
+    monkeypatch.delenv("REPRO_KERNEL_BACKEND")
+    with pytest.raises(RuntimeError, match="cuda backend"):
+        dispatch.resolve("push_many", cpu, "cuda")
+    with pytest.raises(RuntimeError, match="only the kernel runs"):
+        dispatch.resolve("push_many", torch.device("cuda"), "torch")
+    with pytest.raises(ValueError, match="unknown backend"):
+        dispatch.resolve("push_many", cpu, "xla")
+    with pytest.raises(ValueError, match="logistic"):
+        twin.check_kind("logistic")
