@@ -6,6 +6,7 @@
 """
 
 from repro_torch.core.codec import Codec
+from repro_torch.core.distributions import Categorical
 from repro_torch.codecs.leaves import DiscretizedGaussian, PointwiseCDF, Uniform
 from repro_torch.codecs.combinators import BBANS, Chained, Repeat, Serial, Shaped
 from repro_torch.codecs.container import (ContainerError, blob_info,
@@ -15,7 +16,7 @@ from repro_torch.codecs.quantize import (FixedPointFn, LutBernoulli,
 from repro_torch.codecs.compile import CompiledCodec, compile
 
 __all__ = [
-    "Codec",
+    "Codec", "Categorical",
     "DiscretizedGaussian", "PointwiseCDF", "Uniform",
     "BBANS", "Chained", "Repeat", "Serial", "Shaped",
     "compile", "CompiledCodec",

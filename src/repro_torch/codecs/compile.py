@@ -14,7 +14,10 @@ in line and every multi-symbol leg on one dispatched kernel call:
         grid_starts + push_many(gaussian posterior over y | s)
 
 ``Chained`` over it becomes ``_FusedChained``, the same schedule per
-datapoint. The wire is identical to the interpreted codec's (both compute
+datapoint. ``Shaped`` and ``Serial`` lower their children; a combinator
+defined elsewhere registers its own structural lowering
+(``register_lowering``: ``stream.BlockChain`` lowers its inner codec);
+the single-symbol leaves stay as they are, as in the reference. The wire is identical to the interpreted codec's (both compute
 the same integers; the grid CDF is ``xla_ndtr`` on either side) and to
 the reference's. Unlike the reference's lowering of 1-lane stacks
 (ROADMAP H2), nothing here depends on the lane count.
@@ -25,12 +28,13 @@ that ports its lowering.
 
 from __future__ import annotations
 
-from typing import Any, Optional, Tuple
+from typing import Any, Callable, Dict, Optional, Tuple, Type
 
 import torch
 
 from repro_torch.core import ans
 from repro_torch.core.codec import Codec
+from repro_torch.core.distributions import Categorical
 from repro_torch.codecs import combinators as C
 from repro_torch.codecs import leaves as L
 from repro_torch.codecs import quantize as Q
@@ -159,7 +163,31 @@ def _lower_bbans(codec: C.BBANS) -> Optional[_FusedBBANS]:
     return _FusedBBANS(spec[0], spec[1], post, lik)
 
 
+#: type -> (codec, recurse) -> lowered codec, for combinators defined
+#: outside this package (``stream.BlockChain`` registers itself).
+_LOWERINGS: Dict[Type, Callable[[Any, Callable], Codec]] = {}
+
+#: leaves the compiler keeps as they are (each codes one symbol per lane)
+_LEAVES = (L.Uniform, L.PointwiseCDF, L.DiscretizedGaussian, Categorical)
+
+
+def register_lowering(cls: Type,
+                      fn: Callable[[Any, Callable], Codec]) -> None:
+    """Register ``fn(codec, recurse)``, a bit-exact rewrite of a ``cls``
+    codec (typically the same class over ``recurse``-lowered children)."""
+    _LOWERINGS[cls] = fn
+
+
 def _lower(codec: Codec) -> Codec:
+    fn = _LOWERINGS.get(type(codec))
+    if fn is not None:
+        return fn(codec, _lower)
+    if isinstance(codec, _LEAVES):
+        return codec
+    if isinstance(codec, C.Shaped):
+        return C.Shaped(_lower(codec.inner), codec.shape)
+    if isinstance(codec, C.Serial):
+        return C.Serial([_lower(c) for c in codec.codecs])
     if isinstance(codec, C.BBANS):
         fused = _lower_bbans(codec)
         if fused is not None:
@@ -171,8 +199,9 @@ def _lower(codec: Codec) -> Codec:
     raise NotImplementedError(
         f"codecs.compile: lowering {type(codec).__name__} is not ported "
         "yet; this slice lowers BBANS with FixedPointFn children and a "
-        "uniform prior, alone or under Chained (float-leaf Repeat, "
-        "TreeCodec and BitSwap lowerings: ROADMAP queue 1, items 3 and 5)")
+        "uniform prior, alone or under Chained, and the combinators and "
+        "leaves around it (float-leaf Repeat, TreeCodec and BitSwap "
+        "lowerings: ROADMAP queue 1, items 1a and 1c)")
 
 
 class CompiledCodec(Codec):

@@ -151,16 +151,39 @@ def blob_info(blob: bytes) -> Dict[str, Any]:
     }
 
 
+def pack_lane_rows(msg: np.ndarray, lengths: np.ndarray) -> bytes:
+    """Concatenate per-lane ``msg[l, :lengths[l]]`` rows into wire bytes
+    (little-endian u16 chunks): the payload of a BBX1 blob and of a BBX2
+    block."""
+    msg = np.asarray(msg).astype("<u2", copy=False)
+    lengths = np.asarray(lengths)
+    # Row-major boolean selection = the lane rows, in lane order.
+    rows = np.arange(msg.shape[1])[None, :] < lengths[:, None]
+    return msg[rows].tobytes()
+
+
+def unpack_lane_rows(buf: bytes, offset: int,
+                     lengths: np.ndarray) -> np.ndarray:
+    """Inverse of ``pack_lane_rows``: the padded uint16[lanes, width]
+    message from the concatenated rows at ``offset`` in ``buf``."""
+    lengths = np.asarray(lengths)
+    total = int(lengths.sum())
+    if len(buf) < offset + 2 * total:
+        raise ValueError("codecs: truncated payload (lane rows short)")
+    flat = np.frombuffer(buf, dtype="<u2", count=total, offset=offset)
+    width = int(lengths.max()) if lengths.size else 0
+    msg = np.zeros((lengths.shape[0], width), np.uint16)
+    msg[np.arange(width)[None, :] < lengths[:, None]] = flat
+    return msg
+
+
 def _pack(stack: ans.ANSStack, precision: int) -> bytes:
     msg, lengths = ans.flatten(stack)
-    msg = msg.cpu().numpy().astype("<u2")
     lengths = lengths.cpu().numpy()
-    lanes = msg.shape[0]
-    # Row-major boolean selection = lane rows msg[l, :lengths[l]] in order.
-    rows = np.arange(msg.shape[1])[None, :] < lengths[:, None]
-    payload = msg[rows].tobytes()
-    return b"".join([_HEADER.pack(_MAGIC, _VERSION, precision, 0, lanes),
-                     lengths.astype("<u4").tobytes(), payload])
+    return b"".join([_HEADER.pack(_MAGIC, _VERSION, precision, 0,
+                                  len(lengths)),
+                     lengths.astype("<u4").tobytes(),
+                     pack_lane_rows(msg.cpu().numpy(), lengths)])
 
 
 def _unpack(blob: bytes) -> Tuple[np.ndarray, np.ndarray, int]:
@@ -196,7 +219,5 @@ def _unpack(blob: bytes) -> Tuple[np.ndarray, np.ndarray, int]:
         raise ContainerError(
             f"codecs: payload is {len(blob) - off} bytes but the lane "
             f"lengths sum to {need} (truncated or trailing garbage)")
-    flat = np.frombuffer(blob, dtype="<u2", count=need // 2, offset=off)
-    msg = np.zeros((lanes, int(lengths.max())), np.uint16)
-    msg[np.arange(msg.shape[1])[None, :] < lengths[:, None]] = flat
+    msg = unpack_lane_rows(blob, off, lengths)
     return msg, lengths.astype(np.int32), precision

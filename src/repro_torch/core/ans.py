@@ -277,6 +277,27 @@ def cumsum_f32(x: torch.Tensor, block: int = 16) -> torch.Tensor:
     return local.reshape(x.shape[:-1] + (-1,))[..., :n]
 
 
+def sum_f32(x: torch.Tensor, block: int = 32) -> torch.Tensor:
+    """float32 sum over the last axis (kept as a size-1 axis), in the
+    order XLA's CPU backend adds for ``jnp.sum``: a row of at most 32 is
+    summed left to right; a longer row is padded with zeros to a multiple
+    of 32 - half of the padding (rounded down) in front, the rest behind -
+    each block of 32 summed left to right, and the block sums reduced the
+    same way, recursively."""
+    n = x.shape[-1]
+    if n <= block:
+        acc = x[..., :1]
+        for i in range(1, n):
+            acc = acc + x[..., i:i + 1]
+        return acc
+    pad = (-n) % block
+    shape = x.shape[:-1]
+    x = torch.cat([x.new_zeros(shape + (pad // 2,)), x,
+                   x.new_zeros(shape + (pad - pad // 2,))], dim=-1)
+    parts = sum_f32(x.reshape(shape + (-1, block)), block)[..., 0]
+    return sum_f32(parts, block)
+
+
 def probs_to_starts(probs: torch.Tensor,
                     precision: int = DEFAULT_PRECISION) -> torch.Tensor:
     """``cdf_to_starts`` from probabilities ``[..., A]`` (reference's

@@ -1,0 +1,63 @@
+"""Observation-model coders (port of ``repro.core.distributions``):
+``Categorical`` over a static per-lane table. Bernoulli, BetaBinomial,
+FactoredCategorical and DiscretizedLogistic are not ported yet (ROADMAP
+queue 1, item 1b).
+
+The coding table must carry the reference's bits exactly, so the float32
+softmax is XLA-CPU's, op for op, as the reference evaluates it eagerly:
+an exact row max and subtraction, XLA's ``exp_f32``
+(``core/xla_ndtr.py``) with subnormal results flushed to zero as XLA's
+CPU runtime flushes them, the row sum in XLA's reduction order
+(``ans.sum_f32``), one correctly rounded ``1 / sum``, one multiply. Then
+``ans.probs_to_starts`` (XLA's cumsum order, ``ans.cumsum_f32``). Every
+step is an IEEE float32 op on either device, so a table built on the card
+equals one built on the CPU.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Tuple
+
+import torch
+
+from repro_torch.core import ans
+from repro_torch.core.codec import Codec
+from repro_torch.core.xla_ndtr import _exp_f32, _flush
+
+
+def _stable_softmax(logits: torch.Tensor) -> torch.Tensor:
+    """``e * (1 / sum(e))`` with ``e = exp(logits - max)`` over the last
+    axis, float32, bit for bit as the reference computes it on XLA-CPU."""
+    x = logits.to(torch.float32)
+    e = _flush(_exp_f32(x - x.amax(dim=-1, keepdim=True)))
+    return _flush(e * torch.reciprocal(ans.sum_f32(e)))
+
+
+@dataclasses.dataclass(frozen=True)
+class Categorical(Codec):
+    """Per-lane categorical over an alphabet of size ``logits.shape[-1]``.
+
+    ``logits`` float[lanes, A]; symbols int[lanes] in ``0 .. A-1``. The
+    table lives on ``logits``' device.
+    """
+
+    logits: torch.Tensor
+    precision: int = ans.DEFAULT_PRECISION
+
+    def _table(self) -> torch.Tensor:
+        """Cumulative starts int64[lanes, A+1]."""
+        return ans.probs_to_starts(_stable_softmax(self.logits),
+                                   self.precision)
+
+    def push(self, stack: ans.ANSStack, sym: torch.Tensor) -> ans.ANSStack:
+        return ans.push_with_table(stack, self._table(), sym, self.precision)
+
+    def pop(self, stack: ans.ANSStack) -> Tuple[ans.ANSStack, torch.Tensor]:
+        return ans.pop_with_table(stack, self._table(), self.precision)
+
+    def log_prob(self, sym: torch.Tensor) -> torch.Tensor:
+        """Natural-log probability of ``sym`` per lane (float32; a rate
+        figure, not a coding table - not bit-matched to the reference)."""
+        logp = torch.log_softmax(self.logits.to(torch.float32), dim=-1)
+        return logp.gather(-1, sym.to(torch.int64)[:, None])[:, 0]

@@ -10,6 +10,8 @@ blobs were written in:
   * ``PRNGKey(seed)`` -> ``[seed >> 32, seed & 0xFFFFFFFF]``;
   * ``split(key, n)`` hashes counts ``0 .. 2n-1`` and reshapes to
     ``[n, 2]``;
+  * ``fold_in(key, data)`` hashes the pair ``[0, data]`` (the uint32
+    ``data`` as a threefry seed: high word 0, low word ``data``);
   * ``random_bits`` hashes counts ``0 .. size-1`` (32-bit draws);
   * ``randint`` draws two words per value and folds them with the
     ``2^32 mod span`` multiplier, as ``jax._src.random._randint`` does.
@@ -74,6 +76,14 @@ def split(key: np.ndarray, num: int = 2) -> np.ndarray:
     """``jax.random.split(key, num)`` (non-partitionable): uint32[num, 2]."""
     counts = np.arange(num * 2, dtype=np.uint64)
     return threefry_2x32(key, counts).reshape(num, 2)
+
+
+def fold_in(key: np.ndarray, data: int) -> np.ndarray:
+    """``jax.random.fold_in(key, data)`` (non-partitionable): uint32[2]."""
+    data = int(data)
+    if not 0 <= data <= 0xFFFFFFFF:
+        raise ValueError("prng.fold_in: data must fit in uint32")
+    return threefry_2x32(key, np.array([0, data], np.uint64))
 
 
 def random_bits(key: np.ndarray, shape: Tuple[int, ...]) -> np.ndarray:

@@ -1,4 +1,4 @@
-// PyTorch bindings of the four ANS kernels. Each entry point takes typed
+// PyTorch bindings of the six ANS kernels. Each entry point takes typed
 // tensors, checks device, dtype, shape and contiguity, allocates its
 // outputs, and launches on PyTorch's current stream of the tensors' card
 // (a device guard makes that card current). A failed check raises
@@ -19,6 +19,13 @@ cudaError_t launch_pop_dyntable(const int64_t* head, const int32_t* tables,
                                 int32_t* syms, int32_t* reads, int steps,
                                 int lanes, int a1, int precision,
                                 cudaStream_t stream);
+cudaError_t launch_pop_table(const int64_t* head, const int32_t* table,
+                             const int32_t* feed, int64_t* out_head,
+                             int32_t* syms, int32_t* reads, int steps,
+                             int lanes, int a1, int precision,
+                             cudaStream_t stream);
+cudaError_t launch_peek(const int64_t* head, int32_t* slots, int lanes,
+                        int precision, cudaStream_t stream);
 cudaError_t launch_pop_grid(const int64_t* head, const float* mu,
                             const float* sigma, const int32_t* feed,
                             const float* edges, int64_t* out_head,
@@ -111,6 +118,46 @@ std::vector<Tensor> pop_dyntable_emit(const Tensor& head, const Tensor& tables,
   return {out, syms, reads};
 }
 
+// head int64[L]; table int32[L, A+1]; feed int32[S, L]
+// -> (head, syms int32[S, L], reads int32[L]).
+std::vector<Tensor> pop_table_emit(const Tensor& head, const Tensor& table,
+                                   const Tensor& feed, int64_t precision) {
+  const torch::Device dev = card(head);
+  dims(table, "table", 2);
+  dims(feed, "feed", 2);
+  const int64_t steps = feed.size(0), lanes = table.size(0),
+                a1 = table.size(1);
+  need(head, "head", torch::kInt64, {lanes}, dev);
+  need(table, "table", torch::kInt32, {lanes, a1}, dev);
+  need(feed, "feed", torch::kInt32, {steps, lanes}, dev);
+  const c10::cuda::CUDAGuard guard(dev);
+  Tensor out = torch::empty_like(head);
+  Tensor syms = torch::empty_like(feed);
+  Tensor reads = torch::zeros({lanes}, feed.options());
+  launched(launch_pop_table(
+               head.data_ptr<int64_t>(), table.data_ptr<int32_t>(),
+               feed.data_ptr<int32_t>(), out.data_ptr<int64_t>(),
+               syms.data_ptr<int32_t>(), reads.data_ptr<int32_t>(), steps,
+               lanes, a1, precision, at::cuda::getCurrentCUDAStream()),
+           "pop_table_emit");
+  return {out, syms, reads};
+}
+
+// head int64[L] -> slots int32[L].
+Tensor pop_slots(const Tensor& head, int64_t precision) {
+  const torch::Device dev = card(head);
+  dims(head, "head", 1);
+  need(head, "head", torch::kInt64, {head.size(0)}, dev);
+  const c10::cuda::CUDAGuard guard(dev);
+  Tensor slots = torch::empty({head.size(0)},
+                              head.options().dtype(torch::kInt32));
+  launched(launch_peek(head.data_ptr<int64_t>(), slots.data_ptr<int32_t>(),
+                       head.size(0), precision,
+                       at::cuda::getCurrentCUDAStream()),
+           "pop_slots");
+  return slots;
+}
+
 // Shared by both kinds of the grid pop; mu, sigma and edges are null for
 // the uniform kind.
 static std::vector<Tensor> pop_grid(const Tensor& head, const Tensor* mu,
@@ -188,6 +235,8 @@ std::vector<Tensor> grid_starts(const Tensor& idx, const Tensor& mu,
 
 PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
   m.def("push_emit", &push_emit);
+  m.def("pop_table_emit", &pop_table_emit);
+  m.def("pop_slots", &pop_slots);
   m.def("pop_dyntable_emit", &pop_dyntable_emit);
   m.def("pop_grid_gaussian", &pop_grid_gaussian);
   m.def("pop_grid_uniform", &pop_grid_uniform);

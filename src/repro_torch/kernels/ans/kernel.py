@@ -1,9 +1,12 @@
 """The hand-written CUDA kernels of the ANS coder, and their loader.
 
-Four kernels, one source each under ``csrc/``, all one thread per lane
+Six kernels, one source each under ``csrc/``, all one thread per lane
 with the step loop inside the thread (the Pallas ``fori_loop``):
 
   * ``push_emit``         - ``repro/kernels/ans/kernel.py:35 _push_kernel``;
+  * ``pop_slots``         - ``kernel.py:92 _peek_kernel``;
+  * ``pop_table_emit``    - ``kernel.py:120 _pop_table_kernel`` (one static
+                            table per lane);
   * ``pop_dyntable_emit`` - ``kernel.py:196 _pop_dyntable_kernel``;
   * ``pop_grid_emit``     - ``kernel.py:266 _pop_grid_kernel`` (kinds
                             ``gaussian`` and ``uniform``);
@@ -12,7 +15,7 @@ with the step loop inside the thread (the Pallas ``fori_loop``):
                             kernel here so that encoder and decoder share
                             ``common/ndtr.cuh``.
 
-Build: ``torch.utils.cpp_extension.load`` compiles the four sources and
+Build: ``torch.utils.cpp_extension.load`` compiles the six sources and
 ``csrc/bindings.cpp`` (typed ``torch::Tensor`` entry points that check
 their tensors, hold a device guard, allocate the outputs and launch on
 PyTorch's current stream) into one extension on first use, into
@@ -42,6 +45,8 @@ BUILD_DIR = os.path.normpath(
 #: kernel name -> source file in csrc/
 SOURCES = {
     "push_emit": "push.cu",
+    "pop_slots": "peek.cu",
+    "pop_table_emit": "pop_table.cu",
     "pop_dyntable_emit": "pop_dyntable.cu",
     "pop_grid_emit": "pop_grid.cu",
     "grid_starts": "grid_starts.cu",
@@ -52,7 +57,8 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "--fmad=false",
 
 #: launches per kernel (the grid pop per kind) since ``reset_launches()``
 LAUNCHES: Dict[str, int] = {
-    "push_emit": 0, "pop_dyntable_emit": 0, "pop_grid_emit/gaussian": 0,
+    "push_emit": 0, "pop_slots": 0, "pop_table_emit": 0,
+    "pop_dyntable_emit": 0, "pop_grid_emit/gaussian": 0,
     "pop_grid_emit/uniform": 0, "grid_starts": 0}
 
 _EXT = None
@@ -87,7 +93,7 @@ def _launch(counter: str, fn: str, head: torch.Tensor, *args):
     out = getattr(build(), fn)(head, *args)
     if head.numel():
         LAUNCHES[counter] += 1
-    return tuple(out)
+    return out if isinstance(out, torch.Tensor) else tuple(out)
 
 
 def push_emit(head: torch.Tensor, starts: torch.Tensor, freqs: torch.Tensor,
@@ -95,6 +101,19 @@ def push_emit(head: torch.Tensor, starts: torch.Tensor, freqs: torch.Tensor,
     """head int64[L]; starts/freqs int32[S, L] -> (head int64[L], chunks
     int32[S, L], need int32[S, L])."""
     return _launch("push_emit", "push_emit", head, starts, freqs,
+                   precision)
+
+
+def pop_slots(head: torch.Tensor, precision: int) -> torch.Tensor:
+    """head int64[L] -> slots int32[L] = head & (2^precision - 1)."""
+    return _launch("pop_slots", "pop_slots", head, precision)
+
+
+def pop_table_emit(head: torch.Tensor, table: torch.Tensor,
+                   feed: torch.Tensor, precision: int):
+    """head int64[L]; table int32[L, A+1]; feed int32[S, L] -> (head,
+    syms int32[S, L], reads int32[L])."""
+    return _launch("pop_table_emit", "pop_table_emit", head, table, feed,
                    precision)
 
 

@@ -10,6 +10,8 @@ reference:
   * push: the kernel emits a dense [steps, lanes] (chunk, need) list; a
     cumsum turns it into stack positions and one scatter appends the
     chunks (``ops.py:63-74`` of the reference);
+  * table push: the (start, freq) of each symbol is gathered from its
+    lane's static table, then pushed as above;
   * pop: each pop reads at most one chunk, in stack order, so the next
     ``steps`` chunks of every lane are gathered first (``_chunk_feed``)
     and the kernel reads them by a per-lane counter; ``_finish_pop``
@@ -59,6 +61,25 @@ def push_many(stack: ans.ANSStack, starts: torch.Tensor, freqs: torch.Tensor,
                          overflows=stack.overflows + over)
 
 
+def push_many_table(stack: ans.ANSStack, starts_table: torch.Tensor,
+                    symbols: torch.Tensor,
+                    precision: int = ans.DEFAULT_PRECISION,
+                    backend: Optional[str] = None) -> ans.ANSStack:
+    """Push ``steps`` symbols per lane (int[steps, lanes], push order)
+    from one static per-lane cumulative-starts table [lanes, A+1]: the
+    (start, freq) gather here, the pushes through ``push_many``."""
+    name = dispatch.resolve("push_many_table", stack.device, backend)
+    if name == "ref":
+        return R.push_many_table_ref(stack, starts_table, symbols,
+                                     precision)
+    table = starts_table.to(torch.int64)
+    sym = symbols.to(torch.int64)
+    rows = torch.arange(stack.lanes, device=table.device)[None, :]
+    starts = table[rows, sym]
+    return push_many(stack, starts, table[rows, sym + 1] - starts,
+                     precision, name)
+
+
 def _chunk_feed(stack: ans.ANSStack, steps: int) -> torch.Tensor:
     """``feed[r, l]``: the ``r``-th chunk lane ``l``'s stack would serve
     (``buf[l, ptr-1-r]`` clamped at the bottom, as ``ans.pop_update``
@@ -80,6 +101,37 @@ def _finish_pop(stack: ans.ANSStack, head: torch.Tensor, syms: torch.Tensor,
     return stack.replace(head=head, ptr=ptr,
                          underflows=stack.underflows + under), \
         syms.to(torch.int32)
+
+
+def pop_many(stack: ans.ANSStack, starts_table: torch.Tensor, steps: int,
+             precision: int = ans.DEFAULT_PRECISION,
+             backend: Optional[str] = None
+             ) -> Tuple[ans.ANSStack, torch.Tensor]:
+    """Pop ``steps`` symbols per lane against one static per-lane
+    cumulative-starts table [lanes, A+1]; returns (stack, symbols
+    int32[steps, lanes]) in pop order. Reads past the bottom of a lane's
+    stack re-serve its bottom chunk and count as underflows, as
+    ``ans.pop_update`` does."""
+    name = dispatch.resolve("pop_many", stack.device, backend)
+    if name == "ref":
+        return R.pop_many_ref(stack, starts_table, steps, precision)
+    emit = K.pop_table_emit if name == "cuda" else T.pop_table_emit
+    feed = _chunk_feed(stack, steps)
+    head, syms, reads = emit(stack.head.contiguous(), _i32(starts_table),
+                             feed, precision)
+    return _finish_pop(stack, head, syms, reads)
+
+
+def pop_slots(stack: ans.ANSStack, precision: int = ans.DEFAULT_PRECISION,
+              backend: Optional[str] = None) -> torch.Tensor:
+    """The decode slot ``head mod 2^precision`` of every lane, int32
+    [lanes] (the reference's ``kernel.py:102 pop_slots``; ``ans.peek`` is
+    the per-step form the codecs use)."""
+    name = dispatch.resolve("pop_slots", stack.device, backend)
+    if name == "ref":
+        return ans.peek(stack, precision).to(torch.int32)
+    emit = K.pop_slots if name == "cuda" else T.pop_slots
+    return emit(stack.head.contiguous(), precision)
 
 
 def pop_many_dyn(stack: ans.ANSStack, tables: torch.Tensor,

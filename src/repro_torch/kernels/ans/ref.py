@@ -17,6 +17,28 @@ def push_many_ref(stack: ans.ANSStack, starts: torch.Tensor,
     return stack
 
 
+def push_many_table_ref(stack: ans.ANSStack, starts_table: torch.Tensor,
+                        symbols: torch.Tensor,
+                        precision: int) -> ans.ANSStack:
+    """Sequential ``ans.push_with_table`` over the steps of symbols
+    [S, L] against one static table [L, A+1]."""
+    for t in range(symbols.shape[0]):
+        stack = ans.push_with_table(stack, starts_table, symbols[t],
+                                    precision)
+    return stack
+
+
+def pop_many_ref(stack: ans.ANSStack, starts_table: torch.Tensor,
+                 steps: int, precision: int):
+    """Sequential table pops against one static table [L, A+1]; returns
+    (stack, symbols int32[S, L]) in pop order."""
+    syms = []
+    for _ in range(steps):
+        stack, sym = ans.pop_with_table(stack, starts_table, precision)
+        syms.append(sym)
+    return stack, torch.stack(syms).to(torch.int32)
+
+
 def pop_many_dyn_ref(stack: ans.ANSStack, tables: torch.Tensor,
                      precision: int):
     """Sequential table pops against per-step tables [S, L, A+1];

@@ -58,25 +58,52 @@ def _read(h: torch.Tensor, r: torch.Tensor, feed: torch.Tensor
     return h, r + need.to(torch.int64)
 
 
+def pop_slots(head: torch.Tensor, precision: int) -> torch.Tensor:
+    """The decode slot per lane: head [L] -> int32[L] ``head & (2^p - 1)``
+    (``repro/kernels/ans/kernel.py:92 _peek_kernel``)."""
+    return (head.to(torch.int64) & ((1 << precision) - 1)).to(torch.int32)
+
+
+def _pop_table_step(h: torch.Tensor, table: torch.Tensor, precision: int
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One branchless table pop (before the read): ``sym = #(F <= slot)
+    - 1``, ``start = max F <= slot``, ``next = min F > slot``; table
+    int64[L, A+1] -> (head, sym int32[L])."""
+    total = 1 << precision
+    slot = h & (total - 1)
+    le = table <= slot[:, None]
+    sym = (le.sum(dim=1) - 1).to(torch.int32)
+    start = torch.where(le, table, 0).amax(dim=1)
+    nxt = torch.where(le, total, table).amin(dim=1)
+    return ((nxt - start) * (h >> precision) + slot - start) & _M32, sym
+
+
+def pop_table_emit(head: torch.Tensor, table: torch.Tensor,
+                   feed: torch.Tensor, precision: int
+                   ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """head [L]; one static table [L, A+1]; feed [S, L] -> (head,
+    syms int32[S, L], reads int32[L])."""
+    h = head.to(torch.int64)
+    table = table.to(torch.int64)
+    r = torch.zeros_like(h)
+    syms = torch.zeros(feed.shape, dtype=torch.int32, device=h.device)
+    for t in range(feed.shape[0]):
+        h, syms[t] = _pop_table_step(h, table, precision)
+        h, r = _read(h, r, feed)
+    return h, syms, r.to(torch.int32)
+
+
 def pop_dyntable_emit(head: torch.Tensor, tables: torch.Tensor,
                       feed: torch.Tensor, precision: int
                       ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """head [L]; tables [S, L, A+1]; feed [S, L] -> (head, syms int32[S, L],
     reads int32[L])."""
-    steps = feed.shape[0]
-    total = 1 << precision
     h = head.to(torch.int64)
     tables = tables.to(torch.int64)
     r = torch.zeros_like(h)
     syms = torch.zeros(feed.shape, dtype=torch.int32, device=h.device)
-    for t in range(steps):
-        slot = h & (total - 1)
-        table = tables[t]
-        le = table <= slot[:, None]
-        syms[t] = (le.sum(dim=1) - 1).to(torch.int32)
-        start = torch.where(le, table, 0).amax(dim=1)
-        nxt = torch.where(le, total, table).amin(dim=1)
-        h = ((nxt - start) * (h >> precision) + slot - start) & _M32
+    for t in range(feed.shape[0]):
+        h, syms[t] = _pop_table_step(h, tables[t], precision)
         h, r = _read(h, r, feed)
     return h, syms, r.to(torch.int32)
 

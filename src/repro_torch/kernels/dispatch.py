@@ -10,9 +10,13 @@ Every op in ``kernels/ans/ops.py`` has three bit-identical versions:
 
 ``resolve(op, device, backend)`` picks one with the reference's
 precedence (``repro/kernels/dispatch.py:129``): an explicit ``backend=``,
-then the ``REPRO_KERNEL_BACKEND`` environment variable, then the
+then the ``REPRO_TORCH_KERNEL_BACKEND`` environment variable, then the
 innermost ``with use_backend(...)``, then the tensors' device (``cuda``
-on the card, ``torch`` on the CPU). The device decides what may run:
+on the card, ``torch`` on the CPU). The variable is the port's own: the
+reference reads ``REPRO_KERNEL_BACKEND`` with other values
+(``pallas``/``xla``/``interpret``), and one process - or a subprocess
+that inherits the environment - may run both packages, so neither may
+read the other's setting. The device decides what may run:
 asking for ``"cuda"`` with CPU tensors raises, and so does asking for a
 plain version with CUDA tensors - on the card a wrapper launches its
 kernel or fails. (The reference's tuning cache is not ported.)
@@ -29,7 +33,8 @@ import torch
 
 BACKENDS = ("cuda", "torch", "ref")
 
-_ENV_BACKEND = "REPRO_KERNEL_BACKEND"
+#: the environment variable that pins a backend for the whole process
+ENV_BACKEND = "REPRO_TORCH_KERNEL_BACKEND"
 
 
 class _ContextStack(threading.local):
@@ -62,7 +67,7 @@ def use_backend(backend: str) -> Iterator[str]:
 def resolve(op: str, device: torch.device,
             backend: Optional[str] = None) -> str:
     """The backend ``op`` runs on for tensors on ``device``."""
-    name = backend or os.environ.get(_ENV_BACKEND) or \
+    name = backend or os.environ.get(ENV_BACKEND) or \
         (_CONTEXT.stack[-1] if _CONTEXT.stack else None) or \
         ("cuda" if device.type == "cuda" else "torch")
     _check(name)

@@ -13,6 +13,7 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from repro_torch import codecs, stream  # noqa: E402
 from repro_torch.codecs import container  # noqa: E402
 from repro_torch.core import discretize  # noqa: E402
 from repro_torch.kernels.ans import ops, twin  # noqa: E402
@@ -96,3 +97,54 @@ def test_ops_launch_the_kernel_and_count_it(kernel):
     with pytest.raises(RuntimeError, match="only the kernel runs"):
         ops.push_many(stack, c["starts"].cuda(), c["freqs"].cuda(), 16,
                       backend="torch")
+
+
+def _table(rng, lanes, a1):
+    """Non-decreasing tables 0 .. 2^16 with zero-frequency symbols; lane 0
+    all zeros (a padded lane)."""
+    w = rng.integers(1, 100, (lanes, a1 - 1)) * \
+        (rng.random((lanes, a1 - 1)) > 0.3)
+    w[:, 0] += 1
+    cdf = np.floor(np.cumsum(w, 1) / w.sum(1, keepdims=True) * 65536)
+    table = np.concatenate([np.zeros((lanes, 1)), cdf], 1)
+    table[:, -1] = 65536
+    table[0] = 0
+    return torch.from_numpy(table.astype(np.int32))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lanes,a1,steps", [(1, 3, 1), (130, 13, 64),
+                                            (300, 257, 64)])
+def test_table_kernels_match_twin(kernel, lanes, a1, steps):
+    rng = np.random.default_rng(lanes + a1)
+    head = torch.from_numpy(rng.integers(1 << 16, 1 << 32, lanes,
+                                         dtype=np.int64))
+    table = _table(rng, lanes, a1)
+    feed = torch.from_numpy(rng.integers(0, 1 << 16, (steps, lanes))
+                            .astype(np.int32))
+    got = kernel.pop_table_emit(head.cuda(), table.cuda(), feed.cuda(), 16)
+    want = twin.pop_table_emit(head, table, feed, 16)
+    for a, b in zip(got, want):
+        assert torch.equal(a.cpu().to(torch.int64), b.to(torch.int64))
+    for p in (8, 16):
+        assert torch.equal(kernel.pop_slots(head.cuda(), p).cpu(),
+                           twin.pop_slots(head, p))
+
+
+@pytest.mark.cuda
+def test_categorical_stream_on_the_card_equals_the_cpu_twin(kernel):
+    rng = np.random.default_rng(3)
+    logits = torch.from_numpy(rng.normal(size=(64, 256)).astype(np.float32))
+    data = rng.integers(0, 256, (20, 64)).astype(np.int32)
+    wires = {}
+    for dev in ("cpu", "cuda"):
+        codec = codecs.Categorical(logits.to(dev))
+        wires[dev] = stream.encode_stream(codec, data, lanes=64,
+                                          block_symbols=8, seed=0,
+                                          pipeline=True, device=dev)
+    assert wires["cuda"] == wires["cpu"]
+    kernel.reset_launches()
+    out = stream.decode_stream(codecs.Categorical(logits.cuda()),
+                               wires["cuda"], device="cuda")
+    assert torch.equal(out.cpu(), torch.from_numpy(data))
+    assert kernel.LAUNCHES["pop_table_emit"] == 3

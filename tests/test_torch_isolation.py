@@ -12,7 +12,7 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
-from repro_torch import codecs  # noqa: E402
+from repro_torch import codecs, shard_codec, stream  # noqa: E402
 from repro_torch.models import vae  # noqa: E402
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -36,7 +36,7 @@ def test_importing_every_module_loads_no_jax_and_no_reference():
     out = subprocess.run([sys.executable, "-c", _PROBE], env=env,
                          capture_output=True, text=True, check=True,
                          timeout=300).stdout.split(maxsplit=1)
-    assert int(out[0]) >= 20
+    assert int(out[0]) >= 30
     assert out[1].strip() == "[]"
 
 
@@ -70,6 +70,19 @@ def test_entry_points_without_a_device_raise_when_no_cuda(monkeypatch):
     layer = {"w": torch.zeros((3, 2)), "b": torch.zeros(2)}
     with pytest.raises(RuntimeError, match="no CUDA device"):
         codecs.quantize_params({"enc": layer}, codecs.QuantConfig())
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        stream.StreamEncoder(codec, lanes=2, block_symbols=2)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        stream.StreamDecoder(codec)
+    data = torch.zeros((2, 2, 2), dtype=torch.int32)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        shard_codec.compress_dataset(codec, data, n_shards=2)
+    blob = shard_codec.compress_dataset(codec, data, n_shards=2,
+                                        devices=["cpu", "cpu"])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        shard_codec.decompress_dataset(codec, blob)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        shard_codec.decompress_shard(codec, blob, 0)
 
 
 def test_chip_smoke_alone_fails_without_a_result(tmp_path):

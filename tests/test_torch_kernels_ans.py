@@ -16,6 +16,7 @@ import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 
 from repro.codecs import container as ref_container  # noqa: E402
+from repro.kernels import dispatch as ref_dispatch  # noqa: E402
 from repro.kernels.ans import kernel as ref_kernel  # noqa: E402
 from repro.kernels.ans import ops as ref_ops  # noqa: E402
 from repro.kernels.ans import xla as ref_xla  # noqa: E402
@@ -220,14 +221,14 @@ def test_ref_oracle_matches_twin_ops():
 
 def test_dispatch_precedence_and_refusals(monkeypatch):
     cpu = torch.device("cpu")
-    monkeypatch.delenv("REPRO_KERNEL_BACKEND", raising=False)
+    monkeypatch.delenv("REPRO_TORCH_KERNEL_BACKEND", raising=False)
     assert dispatch.resolve("push_many", cpu) == "torch"
     with dispatch.use_backend("ref"):
         assert dispatch.resolve("push_many", cpu) == "ref"
         assert dispatch.resolve("push_many", cpu, "torch") == "torch"
-        monkeypatch.setenv("REPRO_KERNEL_BACKEND", "torch")
+        monkeypatch.setenv("REPRO_TORCH_KERNEL_BACKEND", "torch")
         assert dispatch.resolve("push_many", cpu) == "torch"
-    monkeypatch.delenv("REPRO_KERNEL_BACKEND")
+    monkeypatch.delenv("REPRO_TORCH_KERNEL_BACKEND")
     with pytest.raises(RuntimeError, match="cuda backend"):
         dispatch.resolve("push_many", cpu, "cuda")
     with pytest.raises(RuntimeError, match="only the kernel runs"):
@@ -236,3 +237,27 @@ def test_dispatch_precedence_and_refusals(monkeypatch):
         dispatch.resolve("push_many", cpu, "xla")
     with pytest.raises(ValueError, match="logistic"):
         twin.check_kind("logistic")
+
+
+def test_each_package_reads_only_its_own_backend_variable(monkeypatch):
+    """Both packages in one process: the port's variable does not steer
+    the reference, and the reference's (whose values the port does not
+    know) does not steer - or break - the port."""
+    cpu = torch.device("cpu")
+    d = _inputs(3, 16)
+    monkeypatch.delenv("REPRO_KERNEL_BACKEND", raising=False)
+    monkeypatch.setenv("REPRO_TORCH_KERNEL_BACKEND", "ref")
+    with ref_dispatch.use_backend("interpret"):
+        assert ref_dispatch.resolve("push_many").backend == "interpret"
+    assert dispatch.resolve("push_many", cpu) == "ref"
+    monkeypatch.delenv("REPRO_TORCH_KERNEL_BACKEND")
+    monkeypatch.setenv("REPRO_KERNEL_BACKEND", "xla")
+    assert ref_dispatch.resolve("push_many").backend == "xla"
+    assert dispatch.resolve("push_many", cpu) == "torch"
+    with dispatch.use_backend("ref"):
+        assert dispatch.resolve("push_many", cpu) == "ref"
+    port, r = _stacks(3)
+    r = ref_ops.push_many(r, jnp.asarray(d["starts"]),
+                          jnp.asarray(d["freqs"]), 16)
+    port = ops.push_many(port, _t(d["starts"]), _t(d["freqs"]), 16)
+    _same_stack(port, r)
