@@ -26,16 +26,31 @@ Phases, each on a line of its own; any failure exits non-zero:
   6. the BBX2 stream: the same model through ``stream.StreamEncoder``
      (``compile=True, pipeline=True``), 1024 lanes, blocks of 8 images,
      4 blocks; lossless, five timed reruns, and the card's wire at 64
-     lanes (2 blocks) equals the CPU twin's;
+     lanes (2 blocks) equals the CPU twin's. One more pipelined encoder
+     pushes its first block inside ``torch.cuda.set_sync_debug_mode(
+     "error")``: the push must not wait for the card, and the stream it
+     then writes must be phase 6's;
   7. the BBX3 corpus: the same model, 2 lane shards on the one card
      (``shard_codec``), 2 blocks; lossless, and card == CPU twin at 64
      lanes (a ragged block of 4 images);
   8. the static-table Categorical stream: 4096 lanes, 256 symbols, blocks
      of 64, 4 blocks, through the table-pop kernel (``use_kernel=True``);
      lossless, the same bytes as ``use_kernel=False`` on the card and as
-     the CPU twin at 64 lanes.
+     the CPU twin at 64 lanes;
+  9. the logistic path: ``codecs.compile``d BBX2 stream of
+     ``Repeat(DiscretizedLogistic(mu[:, d], scale[:, d], 10), 40)``,
+     4096 lanes x 4 blocks of 8 (mu, scale from numpy seed 9; scale in
+     [0.05, 2]); lossless, the compiled wire equals the eager wire on the
+     card and the CPU twin's at 64 lanes; median symbols/s;
+ 10. the Table-1 CLI, ``repro_torch.launch.compress.main`` with ``--arch
+     vae-bernoulli --images 8192 --lanes 1024 --shards 1 --train-steps
+     4000`` (the float 784-100-40 VAE trained with AdamW, compressed as a
+     BBX3 corpus, decoded, held to gzip and bz2 by the CLI's own gate);
+     then its eager wire equals its compiled wire on the card over the
+     8 chain steps at 1024 lanes, and the card's bits/dim at 64 lanes is
+     within 2% of the CPU twin's (float bytes differ between devices).
 
-Each path (phases 5-8) runs with the kernel launch counts set to 0 just
+Each path (phases 5-10) runs with the kernel launch counts set to 0 just
 before it and read just after, and fails if one of its kernels was not
 launched.
 
@@ -43,8 +58,9 @@ The line before the last holds the per-kernel JSON record; the last line
 is ``{"ok": true, "device": {...}}``. Imports nothing of JAX or ``repro``.
 
 ``python3 chip_smoke.py --profile`` adds a ``torch.profiler`` trace of
-one more encode + decode of phases 5, 6 and 8 (device busy share, time
-per kernel and per host op; the full tables go to
+one more encode + decode of phases 5, 6, 8 and 9 (device busy share, time
+per kernel and per host op, the count of ``aten::nonzero``, which must be
+0 in phases 5 and 6; the full tables go to
 ``build/smoke/profile_<phase>.txt``).
 """
 
@@ -70,10 +86,24 @@ BLOCK = 8             # images per block, VAE stream and corpus
 BLOCKS = 4            # blocks per lane, VAE stream
 STREAM_TWIN_LANES = 64
 CAT_LANES, CAT_A, CAT_BLOCK, CAT_BLOCKS = 4096, 256, 64, 4
+LOG_LANES, LOG_DIMS, LOG_BLOCK, LOG_BLOCKS = 4096, 40, 8, 4
+# The CLI's gate (BB-ANS below gzip and bz2) at 8 images per lane: each
+# lane carries 32 clean-bit chunks and a head, 576 bits over 8 x 784
+# pixels (0.09 bits/dim), so the model must reach about 0.37 bits/dim
+# where bz2 gives 0.4697 on this corpus. The reference CLI's 400 steps
+# leave it at 0.4243 and the wire at 0.5185, and the gate fails (the CLI
+# on an H100); 4000 steps reach 0.3511 and 0.4470.
+CLI_IMAGES, CLI_STEPS = 8192, 4000
+# Card against CPU twin on the float VAE: float bytes may differ (cuBLAS
+# and the CPU round differently), and one differing bucket moves the
+# bits-back path, which moves the rate about as much as another seed.
+TWIN_RATE_TOL = 0.02
 TABLE_STEPS = CAT_BLOCK   # pop_table_emit check: one block's pops
 
 VAE_KERNELS = ("push_emit", "pop_dyntable_emit", "pop_grid_emit/gaussian",
-               "pop_grid_emit/uniform", "grid_starts")
+               "pop_grid_emit/uniform", "grid_starts/gaussian")
+LOGISTIC_KERNELS = ("push_emit", "pop_grid_emit/logistic",
+                    "grid_starts/logistic")
 CAT_KERNELS = ("push_emit", "pop_table_emit")
 
 # H100 SXM published peaks (NVIDIA data sheet; at a 700 W power limit).
@@ -85,6 +115,10 @@ FP32_FLOPS = 67e12
 # x*x, x*P, divide) + 3 (branch tails, * 0.5) + 4 (standardize, scale,
 # floor).
 FLOPS_PER_F = 102
+# The same for the logistic F(i) = floor(sigmoid((z_i - mu) / s) * scale)
+# + i in kernels/common/xla_math.cuh: 2 (standardize) + 22 (exp) + 2 (1 +
+# e, the division) + 2 (scale, floor).
+FLOPS_PER_F_LOGISTIC = 28
 
 REPLACES = {
     "push_emit": "src/repro/kernels/ans/kernel.py:35",
@@ -93,7 +127,9 @@ REPLACES = {
     "pop_dyntable_emit": "src/repro/kernels/ans/kernel.py:196",
     "pop_grid_emit/gaussian": "src/repro/kernels/ans/kernel.py:266",
     "pop_grid_emit/uniform": "src/repro/kernels/ans/kernel.py:266",
-    "grid_starts": "src/repro/codecs/compile.py:357",
+    "pop_grid_emit/logistic": "src/repro/kernels/ans/kernel.py:266",
+    "grid_starts/gaussian": "src/repro/codecs/compile.py:357",
+    "grid_starts/logistic": "src/repro/codecs/compile.py:97",
 }
 SOURCES = {
     "push_emit": "src/repro_torch/kernels/ans/csrc/push.cu",
@@ -102,7 +138,9 @@ SOURCES = {
     "pop_dyntable_emit": "src/repro_torch/kernels/ans/csrc/pop_dyntable.cu",
     "pop_grid_emit/gaussian": "src/repro_torch/kernels/ans/csrc/pop_grid.cu",
     "pop_grid_emit/uniform": "src/repro_torch/kernels/ans/csrc/pop_grid.cu",
-    "grid_starts": "src/repro_torch/kernels/ans/csrc/grid_starts.cu",
+    "pop_grid_emit/logistic": "src/repro_torch/kernels/ans/csrc/pop_grid.cu",
+    "grid_starts/gaussian": "src/repro_torch/kernels/ans/csrc/grid_starts.cu",
+    "grid_starts/logistic": "src/repro_torch/kernels/ans/csrc/grid_starts.cu",
 }
 
 
@@ -189,11 +227,24 @@ def kernel_inputs(seed: int = 0):
     table[:, -1] = 1 << 16
     feed_t = rng.integers(0, 1 << 16, (TABLE_STEPS, L))
     i32 = lambda a: torch.from_numpy(np.ascontiguousarray(a, np.int32))
+    mu_l, scale = logistic_params(L)
     return {"head": head, "starts": i32(starts), "freqs": i32(freqs),
             "tables": i32(tables), "feed_p": i32(feed_p),
             "feed_s": i32(feed_s), "mu": torch.from_numpy(mu),
             "sigma": torch.from_numpy(sigma), "idx": i32(idx),
-            "table": i32(table), "feed_t": i32(feed_t)}
+            "table": i32(table), "feed_t": i32(feed_t),
+            "mu_l": torch.from_numpy(mu_l.T.copy()),
+            "scale": torch.from_numpy(scale.T.copy())}
+
+
+def logistic_params(lanes: int):
+    """Phase 9's logistic parameters, (mu, scale) float32[lanes, 40] from
+    numpy seed 9, scale in [0.05, 2]."""
+    import numpy as np
+    rng = np.random.default_rng(9)
+    mu = rng.normal(0.0, 1.0, (lanes, LOG_DIMS)).astype(np.float32)
+    scale = rng.uniform(0.05, 2.0, (lanes, LOG_DIMS)).astype(np.float32)
+    return mu, scale
 
 
 def run(mod, name: str, d, e):
@@ -213,6 +264,12 @@ def run(mod, name: str, d, e):
     if name == "pop_grid_emit/uniform":
         return mod.pop_grid_emit(d["head"], None, None, d["feed_s"], None,
                                  "uniform", 10, 16)
+    if name == "pop_grid_emit/logistic":
+        return mod.pop_grid_emit(d["head"], d["mu_l"], d["scale"],
+                                 d["feed_s"], e, "logistic", 10, 16)
+    if name == "grid_starts/logistic":
+        return mod.grid_starts(d["idx"], d["mu_l"], d["scale"], e, 10, 16,
+                               "logistic")
     return mod.grid_starts(d["idx"], d["mu"], d["sigma"], e, 10, 16)
 
 
@@ -230,12 +287,16 @@ def work(name: str, out) -> tuple:
         return 4 * (CAT_A + 1) * L + 4 * TABLE_STEPS * L + reads + 20 * L, 0
     if name == "pop_dyntable_emit":
         return 12 * P * L + 4 * P * L + reads + 20 * L, 0
-    if name == "pop_grid_emit/gaussian":
-        steps_f = (10 + 3) * FLOPS_PER_F      # bisection, start, freq
+    if name.startswith("pop_grid_emit/") and not name.endswith("uniform"):
+        per_f = FLOPS_PER_F if name.endswith("gaussian") \
+            else FLOPS_PER_F_LOGISTIC
+        steps_f = (10 + 3) * per_f            # bisection, start, freq
         return 12 * S * L + reads + 20 * L + 4 * 1025, steps_f * S * L
     if name == "pop_grid_emit/uniform":
         return 4 * S * L + reads + 20 * L, 0
-    return 20 * S * L + 4 * 1025, 2 * FLOPS_PER_F * S * L
+    per_f = FLOPS_PER_F if name.endswith("gaussian") \
+        else FLOPS_PER_F_LOGISTIC
+    return 20 * S * L + 4 * 1025, 2 * per_f * S * L
 
 
 def check_kernels():
@@ -429,6 +490,7 @@ def stream_path(card: str, params, data):
     enc, dec = rates(data.shape[0] * PATH_LANES, encode, decode)
     say(f"phase 6: {REPS} more runs, images/s median (min-max): encode "
         f"{enc}, decode {dec} on {card}")
+    sync_free_push(codec, data, wire, kw)
     # The CPU twin's cost is per chain step, not per lane: 2 blocks.
     sub = data[:2 * BLOCK, :STREAM_TWIN_LANES].contiguous()
     card_wire = stream.encode_stream(codec, sub, lanes=STREAM_TWIN_LANES,
@@ -439,6 +501,29 @@ def stream_path(card: str, params, data):
                    codec_cpu, sub.cpu(), lanes=STREAM_TWIN_LANES,
                    device="cpu", **kw))
     return launches, encode, decode
+
+
+def sync_free_push(codec, data, wire: bytes, kw: dict) -> None:
+    """A pipelined encoder's first block push inside
+    ``torch.cuda.set_sync_debug_mode("error")``, which raises on any
+    operation that waits for the card; the rest of the stream outside it,
+    and the whole must be ``wire``."""
+    import torch
+    from repro_torch import stream
+
+    enc = stream.StreamEncoder(codec, lanes=PATH_LANES, device="cuda", **kw)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        head = enc.write(data[:BLOCK])
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    same = head + enc.write(data[BLOCK:]) + enc.flush() == wire
+    say(f"phase 6: a pipelined block push under set_sync_debug_mode(error) "
+        f"waited for nothing; the stream it began is "
+        f"{'identical' if same else 'DIFFERENT'}")
+    if not same:
+        raise SystemExit("phase 6: the sync-free push wrote other bytes")
 
 
 def corpus_path(card: str, params, data):
@@ -521,6 +606,117 @@ def categorical_path(card: str):
     return launches, encode, decode
 
 
+def logistic_path(card: str):
+    """Phase 9: a compiled BBX2 stream of discretized-logistic symbols
+    through the logistic grid kernels; returns (launch counts, encode,
+    decode)."""
+    import numpy as np
+    import torch
+    from repro_torch import codecs, stream
+    from repro_torch.core import discretize
+
+    mu_np, scale_np = logistic_params(LOG_LANES)
+    rng = np.random.default_rng(10)
+    n = LOG_BLOCK * LOG_BLOCKS
+    u = rng.uniform(1e-6, 1 - 1e-6, (n, LOG_LANES, LOG_DIMS))
+    z = mu_np[None] + scale_np[None] * np.log(u / (1 - u))
+    edges = discretize.edge_table(10, "cpu").numpy()
+    data = torch.from_numpy(np.clip(np.searchsorted(edges, z) - 1, 0, 1023)
+                            .astype(np.int32)).cuda()
+
+    def leaf_codec(mu, scale):
+        return codecs.Repeat(lambda d: codecs.DiscretizedLogistic(
+            mu[:, d], scale[:, d], 10), LOG_DIMS)
+
+    codec = leaf_codec(torch.from_numpy(mu_np).cuda(),
+                       torch.from_numpy(scale_np).cuda())
+    kw = dict(block_symbols=LOG_BLOCK, seed=0, pipeline=True)
+    encode = lambda: stream.encode_stream(codec, data, lanes=LOG_LANES,
+                                          compile=True, device="cuda", **kw)
+    decode = lambda b: stream.decode_stream(codec, b, compile=True,
+                                            device="cuda")
+    (wire, back), launches = counted(
+        "phase 9", LOGISTIC_KERNELS,
+        lambda: (lambda w: (w, decode(w)))(encode()))
+    lossless = bool((back == data).all())
+    say(f"phase 9: compiled logistic stream, {LOG_LANES} lanes x "
+        f"{LOG_BLOCKS} blocks of {LOG_BLOCK} x {LOG_DIMS} symbols: "
+        f"{len(wire)} bytes, {8 * len(wire) / data.numel():.4f} "
+        f"bits/symbol, lossless {lossless}")
+    t0 = time.perf_counter()
+    eager = stream.encode_stream(codec, data, lanes=LOG_LANES, compile=False,
+                                 device="cuda", **kw)
+    say(f"phase 9: eager wire on the card: "
+        f"{'identical' if eager == wire else 'DIFFERENT'} "
+        f"({time.perf_counter() - t0:.1f} s)")
+    if not lossless or eager != wire:
+        raise SystemExit("phase 9 failed")
+    enc, dec = rates(data.numel(), encode, decode)
+    say(f"phase 9: {REPS} more runs, symbols/s median (min-max): encode "
+        f"{enc}, decode {dec} on {card}")
+    sub = data[:, :STREAM_TWIN_LANES].contiguous()
+    m, s_ = (torch.from_numpy(a[:STREAM_TWIN_LANES].copy())
+             for a in (mu_np, scale_np))
+    card_wire = stream.encode_stream(
+        leaf_codec(m.cuda(), s_.cuda()), sub, lanes=STREAM_TWIN_LANES,
+        compile=True, device="cuda", **kw)
+    twin_check("phase 9", STREAM_TWIN_LANES, card_wire,
+               lambda: stream.encode_stream(
+                   leaf_codec(m, s_), sub.cpu(), lanes=STREAM_TWIN_LANES,
+                   compile=True, device="cpu", **kw))
+    return launches, encode, decode
+
+
+def cli_path(card: str):
+    """Phase 10: the Table-1 CLI on the float VAE, then its eager wire
+    against its compiled wire on the card and its rate against the CPU
+    twin's; returns launch counts."""
+    import torch
+    from repro_torch import codecs
+    from repro_torch.launch import compress as cli
+
+    args = ["--arch", "vae-bernoulli", "--images", str(CLI_IMAGES),
+            "--lanes", str(PATH_LANES), "--shards", "1", "--train-steps",
+            str(CLI_STEPS)]
+    say(f"phase 10: python -m repro_torch.launch.compress {' '.join(args)}")
+    out, launches = counted("phase 10", VAE_KERNELS, lambda: cli.main(args))
+    say(f"phase 10: trained {CLI_STEPS} steps in {out['train_s']:.2f} s; "
+        f"-ELBO {out['elbo_bpd']:.4f} bits/dim, wire "
+        f"{out['wire_bpd']:.4f}, gzip {out['baselines']['gzip']:.4f}, bz2 "
+        f"{out['baselines']['bz2']:.4f}; encode "
+        f"{out['encode_images_per_s']:.1f} images/s, decode "
+        f"{out['decode_images_per_s']:.1f} images/s (host clock, "
+        f"with the corpus framing) on {card}")
+    data, steps = out["data"], CLI_IMAGES // PATH_LANES
+    chain = codecs.Chained(out["make_codec"](), steps)
+    kw = dict(lanes=PATH_LANES, seed=0, device="cuda")
+    compiled = codecs.compress(codecs.compile(chain), data, **kw)
+    t0 = time.perf_counter()
+    eager = codecs.compress(chain, data, **kw)
+    say(f"phase 10: float VAE, {steps} chain steps at {PATH_LANES} lanes: "
+        f"eager wire {'==' if eager == compiled else '!='} compiled wire "
+        f"on the card ({len(compiled)} bytes; eager "
+        f"{time.perf_counter() - t0:.1f} s)")
+    if eager != compiled:
+        raise SystemExit("phase 10: eager and compiled wires differ")
+    sub = data[:, :STREAM_TWIN_LANES].contiguous()
+    twin = codecs.compile(codecs.Chained(out["make_codec"]("cpu"), steps))
+    on_card = codecs.compress(codecs.compile(chain), sub,
+                              lanes=STREAM_TWIN_LANES, seed=0, device="cuda")
+    t0 = time.perf_counter()
+    on_cpu = codecs.compress(twin, sub.cpu(), lanes=STREAM_TWIN_LANES,
+                             seed=0, device="cpu")
+    bpd = [8 * len(b) / sub.numel() for b in (on_card, on_cpu)]
+    close = abs(bpd[0] - bpd[1]) <= TWIN_RATE_TOL * bpd[1]
+    say(f"phase 10: {STREAM_TWIN_LANES}-lane bits/dim, card {bpd[0]:.4f} "
+        f"vs CPU twin {bpd[1]:.4f} (bytes "
+        f"{'identical' if on_card == on_cpu else 'different'}; tolerance "
+        f"{TWIN_RATE_TOL:.0%}; CPU twin {time.perf_counter() - t0:.1f} s)")
+    if not close:
+        raise SystemExit("phase 10: card and CPU twin rates disagree")
+    return launches
+
+
 def main_path(card: str, data):
     """Phase 5 on ``data`` [CHAIN, PATH_LANES, 784]; returns (launch
     counts, encode, decode, params)."""
@@ -560,11 +756,12 @@ def main_path(card: str, data):
     return launches, encode, decode, params
 
 
-def profile(label: str, encode, decode) -> None:
+def profile(label: str, encode, decode) -> int:
     """One traced ``encode()`` + ``decode(blob)`` of a path: wall time,
     device busy time (the sum of the kernels' and copies' device times)
     and the top kernels and host ops; the full tables go to
-    ``build/smoke/profile_<label>.txt``."""
+    ``build/smoke/profile_<label>.txt``. Returns the count of
+    ``aten::nonzero`` (a host sync) in the trace."""
     import torch
     from torch.profiler import ProfilerActivity
 
@@ -605,6 +802,9 @@ def profile(label: str, encode, decode) -> None:
     say(f"profile {label}: host " + "; ".join(
         f"{e.key[:40]} {e.self_cpu_time_total / 1e3:.2f} ms x{e.count}"
         for e in host))
+    nonzero = sum(e.count for e in events if e.key == "aten::nonzero")
+    say(f"profile {label}: aten::nonzero x{nonzero}")
+    return nonzero
 
 
 def main() -> int:
@@ -654,9 +854,16 @@ def main() -> int:
     stamp("phase 7")
     by_path["categorical_stream"], *traced["phase8"] = categorical_path(smi)
     stamp("phase 8")
+    by_path["logistic_stream"], *traced["phase9"] = logistic_path(smi)
+    stamp("phase 9")
+    by_path["table1_cli"] = cli_path(smi)
+    stamp("phase 10")
     if "--profile" in sys.argv[1:]:
-        for label, (encode, decode) in traced.items():
-            profile(label, encode, decode)
+        syncs = {label: profile(label, encode, decode)
+                 for label, (encode, decode) in traced.items()}
+        if syncs["phase5"] or syncs["phase6"]:
+            raise SystemExit("profile: the VAE paths still sync through "
+                             "aten::nonzero")
     for rec in records:
         counts = {p: c[rec["name"]] for p, c in by_path.items()
                   if c[rec["name"]]}

@@ -6,8 +6,10 @@
 """
 
 from repro_torch.core.codec import Codec
-from repro_torch.core.distributions import Categorical
-from repro_torch.codecs.leaves import DiscretizedGaussian, PointwiseCDF, Uniform
+from repro_torch.core.distributions import Bernoulli, Categorical
+from repro_torch.codecs.leaves import (DiscretizedGaussian,
+                                       DiscretizedLogistic, PointwiseCDF,
+                                       Uniform)
 from repro_torch.codecs.combinators import BBANS, Chained, Repeat, Serial, Shaped
 from repro_torch.codecs.container import (ContainerError, blob_info,
                                           compress, decompress, fresh_stack)
@@ -16,8 +18,8 @@ from repro_torch.codecs.quantize import (FixedPointFn, LutBernoulli,
 from repro_torch.codecs.compile import CompiledCodec, compile
 
 __all__ = [
-    "Codec", "Categorical",
-    "DiscretizedGaussian", "PointwiseCDF", "Uniform",
+    "Codec", "Bernoulli", "Categorical",
+    "DiscretizedGaussian", "DiscretizedLogistic", "PointwiseCDF", "Uniform",
     "BBANS", "Chained", "Repeat", "Serial", "Shaped",
     "compile", "CompiledCodec",
     "FixedPointFn", "LutBernoulli", "QuantConfig", "quantize_params",

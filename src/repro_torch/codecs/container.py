@@ -98,7 +98,7 @@ def compress(codec: Codec, data: Any, *, lanes: int,
     chunks = 0 if seed is None else init_chunks
     for attempt in range(max_retries):
         stack0 = fresh_stack(lanes, cap, seed, chunks, device=device)
-        bits_before = ans.stack_content_bits(stack0) if with_info else 0.0
+        bits_before = ans.stack_content_bits(stack0)
         stack = codec.push(stack0, data)
         over = int(stack.overflows.sum())
         under = int(stack.underflows.sum())
@@ -108,7 +108,8 @@ def compress(codec: Codec, data: Any, *, lanes: int,
                 return blob
             return blob, {
                 "capacity": cap, "init_chunks": chunks, "seed": seed,
-                "net_bits": ans.stack_content_bits(stack) - bits_before,
+                "net_bits": float(ans.stack_content_bits(stack))
+                - float(bits_before),
                 "retries": attempt, **blob_info(blob)}
         if over:
             cap *= 2

@@ -19,6 +19,14 @@ which reproduces uint32 wraparound. Chunks are ``int32`` in
 Unlike JAX arrays, ``buf`` is updated in place by pushes (a copy of the
 whole ``[lanes, capacity]`` buffer per symbol would dominate): callers use
 the stack a push returns and do not reuse the one they passed in.
+
+Appends never wait for the device. ``buf`` is the first ``capacity``
+columns of a ``[lanes, capacity + 1]`` block; the last column, which no
+reader sees, is the spill column. A push scatters every chunk, sending
+the ones it must not keep (no emission, or a full stack) to the spill
+column, as the reference's ``mode="drop"`` scatter drops them. Boolean
+indexing would instead read the mask back to the host (``nonzero``) on
+every push.
 """
 
 from __future__ import annotations
@@ -29,6 +37,7 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
+from repro_torch import device as dev
 from repro_torch.core import prng
 
 RANS_L = 1 << 16
@@ -75,30 +84,58 @@ def make_stack(lanes: int, capacity: int, key: Optional[np.ndarray] = None,
     """An empty stack; with a threefry ``key``, heads uniform on
     ``[2^16, 2^32)`` drawn exactly as the reference draws them."""
     if key is None:
-        head = torch.full((lanes,), RANS_L, dtype=torch.int64)
+        head = torch.full((lanes,), RANS_L, dtype=torch.int64, device=device)
     else:
         k_hi, k_lo = prng.split(key)
         hi = prng.randint(k_hi, (lanes,), 1, 1 << 16).astype(np.int64)
         lo = prng.randint(k_lo, (lanes,), 0, 1 << 16).astype(np.int64)
-        head = torch.from_numpy((hi << 16) | lo)
+        head = dev.upload((hi << 16) | lo, device)
     zeros = torch.zeros((lanes,), dtype=torch.int64, device=device)
     return ANSStack(
         head=head.to(device),
-        buf=torch.zeros((lanes, capacity), dtype=torch.int32, device=device),
+        buf=empty_buf(lanes, capacity, device),
         ptr=zeros, underflows=zeros.clone(), overflows=zeros.clone())
+
+
+def empty_buf(lanes: int, capacity: int,
+              device: torch.device) -> torch.Tensor:
+    """int32[lanes, capacity] of zeros: the visible columns of a
+    ``[lanes, capacity + 1]`` block whose last column is the spill
+    column ``append`` writes dropped chunks to."""
+    return torch.zeros((lanes, capacity + 1), dtype=torch.int32,
+                       device=device)[:, :capacity]
+
+
+def append(buf: torch.Tensor, rows: torch.Tensor, cols: torch.Tensor,
+           chunks: torch.Tensor, keep: torch.Tensor) -> torch.Tensor:
+    """Write ``chunks`` to ``buf[rows, cols]`` where ``keep`` holds and to
+    the spill column elsewhere: one scatter of every chunk, with no host
+    sync. The positions kept must be distinct and inside ``buf``. Returns
+    the buffer written (``buf`` itself unless it lacked a spill column;
+    then a copy that has one)."""
+    lanes, cap = buf.shape
+    if buf.stride() == (cap + 1, 1) and \
+            buf.untyped_storage().nbytes() >= \
+            (buf.storage_offset() + lanes * (cap + 1)) * buf.element_size():
+        block = buf.as_strided((lanes, cap + 1), (cap + 1, 1))
+    else:
+        block = torch.zeros((lanes, cap + 1), dtype=buf.dtype,
+                            device=buf.device)
+        block[:, :cap] = buf
+    block[rows, torch.where(keep, cols, cap)] = chunks.to(buf.dtype)
+    return block[:, :cap]
 
 
 def seed_stack(stack: ANSStack, key: np.ndarray, n_chunks: int) -> ANSStack:
     """Push ``n_chunks`` uniform 16-bit chunks per lane (clean bits)."""
     chunks = prng.randint(key, (stack.lanes, n_chunks), 0, 1 << 16)
-    chunks = torch.from_numpy(chunks.astype(np.int32)).to(stack.device)
+    chunks = dev.upload(chunks.astype(np.int32), stack.device)
     cols = stack.ptr[:, None] + torch.arange(n_chunks, device=stack.device)
     rows = torch.arange(stack.lanes, device=stack.device)[:, None] \
         .expand_as(cols)
-    keep = cols < stack.capacity
-    stack.buf[rows[keep], cols[keep]] = chunks[keep]
+    buf = append(stack.buf, rows, cols, chunks, cols < stack.capacity)
     dropped = torch.clamp(stack.ptr + n_chunks - stack.capacity, 0, n_chunks)
-    return stack.replace(ptr=stack.ptr + n_chunks,
+    return stack.replace(buf=buf, ptr=stack.ptr + n_chunks,
                          overflows=stack.overflows + dropped)
 
 
@@ -119,13 +156,12 @@ def push(stack: ANSStack, start: torch.Tensor, freq: torch.Tensor,
     need = head >= x_max
     write = need & (ptr < stack.capacity)
     lanes = torch.arange(stack.lanes, device=head.device)
-    stack.buf[lanes[write], ptr[write]] = (head[write] & MASK16) \
-        .to(torch.int32)
+    buf = append(stack.buf, lanes, ptr, head & MASK16, write)
     over = need & (ptr >= stack.capacity)
     ptr = ptr + need.to(torch.int64)
     head = torch.where(need, head >> 16, head)
     head = (((head // freq) << precision) + head % freq + start) & MASK32
-    return stack.replace(head=head, ptr=ptr,
+    return stack.replace(head=head, buf=buf, ptr=ptr,
                          overflows=stack.overflows + over.to(torch.int64))
 
 
@@ -188,12 +224,14 @@ def stack_bits(stack: ANSStack) -> int:
     return int(stack.ptr.sum()) * 16 + 32 * stack.lanes
 
 
-def stack_content_bits(stack: ANSStack) -> float:
+def stack_content_bits(stack: ANSStack) -> torch.Tensor:
     """Information on the stack, excluding the flush constant: 16 bits
-    per chunk plus ``log2(head)`` per lane (float32, as the reference
-    sums without x64)."""
+    per chunk plus ``log2(head)`` per lane, as a float32 scalar tensor
+    on the stack's device (the reference sums without x64). Reading its
+    value waits for the device, so callers keep it a tensor until they
+    need the number."""
     head_bits = torch.log2(stack.head.to(torch.float32))
-    return float(stack.ptr.sum().to(torch.float32) * 16.0 + head_bits.sum())
+    return stack.ptr.sum().to(torch.float32) * 16.0 + head_bits.sum()
 
 
 def flatten(stack: ANSStack) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -211,11 +249,11 @@ def unflatten(msg: torch.Tensor, lengths: torch.Tensor,
     cap = capacity if capacity is not None else msg.shape[1] - 2
     msg = msg.to(torch.int64)
     head = (msg[:, 0] << 16) | msg[:, 1]
-    buf = msg[:, 2:2 + cap].to(torch.int32)
-    if buf.shape[1] < cap:
-        buf = torch.nn.functional.pad(buf, (0, cap - buf.shape[1]))
+    body = msg[:, 2:2 + cap]
+    buf = empty_buf(lanes, cap, msg.device)
+    buf[:, :body.shape[1]] = body
     zeros = torch.zeros((lanes,), dtype=torch.int64, device=msg.device)
-    return ANSStack(head=head, buf=buf.contiguous(),
+    return ANSStack(head=head, buf=buf,
                     ptr=lengths.to(torch.int64) - 2,
                     underflows=zeros, overflows=zeros.clone())
 

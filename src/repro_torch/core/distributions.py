@@ -1,7 +1,11 @@
 """Observation-model coders (port of ``repro.core.distributions``):
-``Categorical`` over a static per-lane table. Bernoulli, BetaBinomial,
-FactoredCategorical and DiscretizedLogistic are not ported yet (ROADMAP
-queue 1, item 1b).
+``Bernoulli`` and ``Categorical`` over a static per-lane table.
+BetaBinomial and FactoredCategorical are not ported yet (ROADMAP queue 1,
+item 3).
+
+The Bernoulli table is ``round(sigmoid(logit) * (2^p - 2)) + 1`` with
+XLA-CPU's float32 sigmoid (``xla_ndtr.sigmoid_f32``) and round half to
+even, as ``jnp.round`` rounds; so it is the reference's, bit for bit.
 
 The coding table must carry the reference's bits exactly, so the float32
 softmax is XLA-CPU's, op for op, as the reference evaluates it eagerly:
@@ -23,7 +27,7 @@ import torch
 
 from repro_torch.core import ans
 from repro_torch.core.codec import Codec
-from repro_torch.core.xla_ndtr import _exp_f32, _flush
+from repro_torch.core.xla_ndtr import _exp_f32, _flush, sigmoid_f32
 
 
 def _stable_softmax(logits: torch.Tensor) -> torch.Tensor:
@@ -32,6 +36,53 @@ def _stable_softmax(logits: torch.Tensor) -> torch.Tensor:
     x = logits.to(torch.float32)
     e = _flush(_exp_f32(x - x.amax(dim=-1, keepdim=True)))
     return _flush(e * torch.reciprocal(ans.sum_f32(e)))
+
+
+def bernoulli_freq1(logits: torch.Tensor,
+                    precision: int = ans.DEFAULT_PRECISION) -> torch.Tensor:
+    """Fixed-point frequency of a 1, int64 in ``[1, 2^p - 1]``:
+    ``round(sigmoid(logit) * (2^p - 2)) + 1``. Elementwise: the same bits
+    for one lane or a whole [n, lanes] grid."""
+    p = sigmoid_f32(logits)
+    return torch.round(p * ((1 << precision) - 2)).to(torch.int64) + 1
+
+
+@dataclasses.dataclass(frozen=True)
+class Bernoulli(Codec):
+    """Per-lane Bernoulli with success probability ``sigmoid(logit)``;
+    symbols in {0, 1}."""
+
+    logits: torch.Tensor  # float[lanes]
+    precision: int = ans.DEFAULT_PRECISION
+
+    def _freq1(self) -> torch.Tensor:
+        return bernoulli_freq1(self.logits, self.precision)
+
+    def push(self, stack: ans.ANSStack, sym: torch.Tensor) -> ans.ANSStack:
+        total = 1 << self.precision
+        f1 = self._freq1()
+        f0 = total - f1
+        is1 = sym.bool()
+        start = torch.where(is1, f0, torch.zeros_like(f0))
+        freq = torch.where(is1, f1, f0)
+        return ans.push(stack, start, freq, self.precision)
+
+    def pop(self, stack: ans.ANSStack) -> Tuple[ans.ANSStack, torch.Tensor]:
+        total = 1 << self.precision
+        f1 = self._freq1()
+        f0 = total - f1
+        is1 = ans.peek(stack, self.precision) >= f0
+        start = torch.where(is1, f0, torch.zeros_like(f0))
+        freq = torch.where(is1, f1, f0)
+        return (ans.pop_update(stack, start, freq, self.precision),
+                is1.to(torch.int32))
+
+    def log_prob(self, sym: torch.Tensor) -> torch.Tensor:
+        """Natural-log probability of ``sym`` per lane (a rate figure,
+        differentiable; not bit-matched to the reference)."""
+        x = sym.to(self.logits.dtype)
+        return x * torch.nn.functional.logsigmoid(self.logits) + \
+            (1 - x) * torch.nn.functional.logsigmoid(-self.logits)
 
 
 @dataclasses.dataclass(frozen=True)

@@ -1,4 +1,4 @@
-"""XLA-CPU's float32 ``ndtr``, op for op, in PyTorch.
+"""XLA-CPU's float32 ``ndtr`` and ``sigmoid``, op for op, in PyTorch.
 
 ``torch.special.ndtr`` is not the function the JAX reference evaluates:
 over 2M float32 inputs it differs from ``jax.scipy.special.ndtr`` on about
@@ -28,6 +28,13 @@ An fma is emulated exactly (``fma_f32``). Every float32 constant is a
 hex literal taken from the IR. ``kernels/common/ndtr.cuh`` holds the same
 sequence line for line for the CUDA kernels, so the card and this twin
 compute identical bits.
+
+``jax.nn.sigmoid`` lowers to ``1 / (1 + exp(-x))`` (eager and jitted
+alike): ``sigmoid_f32`` is that, with XLA's ``exp_f32``, one correctly
+rounded division, and the subnormal results (``x`` in about
+``[-88.72, -87.34]``, where ``exp(-x)`` nears the float32 maximum)
+flushed to zero as XLA's CPU runtime flushes them. ``kernels/common/
+xla_math.cuh`` holds the same sequence for the CUDA kernels.
 """
 
 from __future__ import annotations
@@ -107,6 +114,13 @@ def _exp_f32(x: torch.Tensor) -> torch.Tensor:
     n = torch.nan_to_num(fx, nan=0.0).to(torch.int32)
     pow2 = ((n + 127) << 23).view(torch.float32)
     return p * pow2
+
+
+def sigmoid_f32(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.sigmoid`` on XLA-CPU (float32), bit for bit: purely
+    elementwise, so a table built over any shape has the same bits."""
+    x = x.float()
+    return _flush(torch.reciprocal(1.0 + _exp_f32(-x)))
 
 
 def _flush(v: torch.Tensor) -> torch.Tensor:

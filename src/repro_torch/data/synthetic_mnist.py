@@ -79,6 +79,12 @@ def _pack_segments():
 _SEGS, _SEG_MASK = _pack_segments()
 
 
+#: images rendered at a time: the distance field of a chunk stays in
+#: cache (the draws are made for the whole batch first, in the original
+#: order, so the output does not depend on the chunk size)
+_CHUNK = 128
+
+
 def render(labels: np.ndarray, rng: np.random.Generator) -> np.ndarray:
     """Render a batch of digits. labels int[n] -> uint8 [n, 784]."""
     n = len(labels)
@@ -86,11 +92,17 @@ def render(labels: np.ndarray, rng: np.random.Generator) -> np.ndarray:
     ys, xs = np.meshgrid(np.arange(H), np.arange(W), indexing="ij")
     grid = np.stack([(xs + 0.5) / W, (ys + 0.5) / H], -1).reshape(-1, 2)
 
-    # Per-image random affine (applied to grid coords, i.e. inverse map).
+    # Per-image random affine (applied to grid coords, i.e. inverse map),
+    # stroke width, peak intensity and background noise.
     ang = rng.uniform(-0.18, 0.18, n)
     scale = rng.uniform(0.85, 1.12, (n, 1))
     shear = rng.uniform(-0.12, 0.12, n)
     tx = rng.uniform(-0.07, 0.07, (n, 2))
+    width = rng.uniform(0.032, 0.05, (n, 1))
+    peak = rng.uniform(0.75, 1.0, (n, 1))
+    # Faint sensor noise in the background, like MNIST's greyscale fringe.
+    noise = rng.uniform(0, 6, (n, H * W))
+
     ca, sa = np.cos(ang), np.sin(ang)
     rot = np.stack([np.stack([ca, -sa], -1),
                     np.stack([sa, ca], -1)], -2)          # [n, 2, 2]
@@ -98,28 +110,32 @@ def render(labels: np.ndarray, rng: np.random.Generator) -> np.ndarray:
     shm[:, 0, 1] = shear
     amat = np.einsum("nij,njk->nik", rot, shm) / scale[..., None]
     centred = grid[None] - 0.5                           # [n, 784, 2]
-    coords = np.einsum("nij,npj->npi", amat, centred) + 0.5 + tx[:, None]
 
-    segs = _SEGS[labels]        # [n, S, 2, 2]
-    mask = _SEG_MASK[labels]    # [n, S]
-    a = segs[:, :, 0][:, None]  # [n, 1, S, 2]
-    b = segs[:, :, 1][:, None]
-    p = coords[:, :, None]      # [n, 784, 1, 2]
-    ab = b - a
-    denom = (ab * ab).sum(-1) + 1e-9
-    t = ((p - a) * ab).sum(-1) / denom
-    t = np.clip(t, 0.0, 1.0)
-    proj = a + t[..., None] * ab
-    dist = np.sqrt(((p - proj) ** 2).sum(-1))           # [n, 784, S]
-    dist = np.where(mask[:, None], dist, np.inf).min(-1)  # [n, 784]
+    out = np.empty((n, H * W), np.uint8)
+    for lo in range(0, n, _CHUNK):
+        c = slice(lo, lo + _CHUNK)
+        coords = np.einsum("nij,npj->npi", amat[c], centred) + 0.5 \
+            + tx[c, None]
+        segs = _SEGS[labels[c]]        # [m, S, 2, 2]
+        mask = _SEG_MASK[labels[c]]    # [m, S]
+        # Distance from each pixel to each segment, x and y apart (the
+        # two-term sums in the reference's order, x first).
+        ax, ay = segs[:, None, :, 0, 0], segs[:, None, :, 0, 1]
+        abx = segs[:, None, :, 1, 0] - ax          # [m, 1, S]
+        aby = segs[:, None, :, 1, 1] - ay
+        px, py = coords[:, :, None, 0], coords[:, :, None, 1]  # [m, 784, 1]
+        denom = (abx * abx + aby * aby) + 1e-9
+        t = ((px - ax) * abx + (py - ay) * aby) / denom
+        t = np.clip(t, 0.0, 1.0)
+        dist = np.sqrt((px - (ax + t * abx)) ** 2
+                       + (py - (ay + t * aby)) ** 2)  # [m, 784, S]
+        dist = np.where(mask[:, None], dist, np.inf).min(-1)
 
-    width = rng.uniform(0.032, 0.05, (n, 1))
-    inten = np.exp(-0.5 * (dist / width) ** 2)
-    peak = rng.uniform(0.75, 1.0, (n, 1))
-    img = np.clip(inten * peak * 255.0, 0, 255)
-    # Faint sensor noise in the background, like MNIST's greyscale fringe.
-    img += rng.uniform(0, 6, img.shape)
-    return np.clip(img, 0, 255).astype(np.uint8)
+        inten = np.exp(-0.5 * (dist / width[c]) ** 2)
+        img = np.clip(inten * peak[c] * 255.0, 0, 255)
+        img += noise[c]
+        out[c] = np.clip(img, 0, 255).astype(np.uint8)
+    return out
 
 
 def load(split: str = "train", n: int = 10000, seed: int = 0):

@@ -10,6 +10,7 @@ from __future__ import annotations
 
 from typing import Optional, Union
 
+import numpy as np
 import torch
 
 DeviceLike = Union[None, str, torch.device]
@@ -36,3 +37,14 @@ def as_tensor(x, device: torch.device,
     if isinstance(x, torch.Tensor):
         return x.to(device=device, dtype=dtype or x.dtype)
     return torch.as_tensor(x, dtype=dtype, device=device)
+
+
+def upload(array: np.ndarray, device: torch.device) -> torch.Tensor:
+    """A host array as a tensor on ``device``. To a card it goes through
+    pinned memory with a non-blocking copy: a copy from pageable memory
+    would synchronize the stream, and the coder's pushes must not wait
+    for the device."""
+    t = torch.from_numpy(np.ascontiguousarray(array))
+    if device.type == "cuda":
+        return t.pin_memory().to(device, non_blocking=True)
+    return t.to(device)

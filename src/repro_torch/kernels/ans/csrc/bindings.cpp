@@ -8,6 +8,7 @@
 #include <c10/cuda/CUDAGuard.h>
 #include <torch/extension.h>
 
+#include <string>
 #include <vector>
 
 cudaError_t launch_push(const int64_t* head, const int32_t* starts,
@@ -30,12 +31,12 @@ cudaError_t launch_pop_grid(const int64_t* head, const float* mu,
                             const float* sigma, const int32_t* feed,
                             const float* edges, int64_t* out_head,
                             int32_t* idx, int32_t* reads, int steps,
-                            int lanes, int gaussian, int lat_bits,
+                            int lanes, int kind, int lat_bits,
                             int precision, cudaStream_t stream);
 cudaError_t launch_grid_starts(const int32_t* idx, const float* mu,
                                const float* sigma, const float* edges,
                                int32_t* start, int32_t* freq, int n,
-                               int lat_bits, int precision,
+                               int kind, int lat_bits, int precision,
                                cudaStream_t stream);
 
 namespace {
@@ -158,12 +159,22 @@ Tensor pop_slots(const Tensor& head, int64_t precision) {
   return slots;
 }
 
-// Shared by both kinds of the grid pop; mu, sigma and edges are null for
+// Grid kinds, as pop_grid.cu and grid_starts.cu number them.
+constexpr int kUniform = 0, kGaussian = 1, kLogistic = 2;
+
+static int cdf_kind(const std::string& kind) {
+  TORCH_CHECK_VALUE(kind == "gaussian" || kind == "logistic",
+                    "kernels.ans: CDF grid kind must be gaussian or "
+                    "logistic, got ", kind);
+  return kind == "logistic" ? kLogistic : kGaussian;
+}
+
+// Shared by every kind of the grid pop; mu, sigma and edges are null for
 // the uniform kind.
 static std::vector<Tensor> pop_grid(const Tensor& head, const Tensor* mu,
                                     const Tensor* sigma, const Tensor& feed,
-                                    const Tensor* edges, int64_t lat_bits,
-                                    int64_t precision) {
+                                    const Tensor* edges, int kind,
+                                    int64_t lat_bits, int64_t precision) {
   const torch::Device dev = card(head);
   dims(feed, "feed", 2);
   const int64_t steps = feed.size(0), lanes = feed.size(1);
@@ -179,41 +190,45 @@ static std::vector<Tensor> pop_grid(const Tensor& head, const Tensor* mu,
   Tensor out = torch::empty_like(head);
   Tensor idx = torch::empty_like(feed);
   Tensor reads = torch::zeros({lanes}, feed.options());
-  const bool gaussian = mu != nullptr;
+  const bool cdf = mu != nullptr;
   launched(launch_pop_grid(
                head.data_ptr<int64_t>(),
-               gaussian ? mu->data_ptr<float>() : nullptr,
-               gaussian ? sigma->data_ptr<float>() : nullptr,
+               cdf ? mu->data_ptr<float>() : nullptr,
+               cdf ? sigma->data_ptr<float>() : nullptr,
                feed.data_ptr<int32_t>(),
-               gaussian ? edges->data_ptr<float>() : nullptr,
+               cdf ? edges->data_ptr<float>() : nullptr,
                out.data_ptr<int64_t>(), idx.data_ptr<int32_t>(),
-               reads.data_ptr<int32_t>(), steps, lanes, gaussian, lat_bits,
+               reads.data_ptr<int32_t>(), steps, lanes, kind, lat_bits,
                precision, at::cuda::getCurrentCUDAStream()),
            "pop_grid_emit");
   return {out, idx, reads};
 }
 
-// head int64[L]; mu, sigma float32[S, L]; feed int32[S, L];
-// edges float32[K+1] -> (head, idx int32[S, L], reads int32[L]).
-std::vector<Tensor> pop_grid_gaussian(const Tensor& head, const Tensor& mu,
-                                      const Tensor& sigma, const Tensor& feed,
-                                      const Tensor& edges, int64_t lat_bits,
-                                      int64_t precision) {
-  return pop_grid(head, &mu, &sigma, feed, &edges, lat_bits, precision);
+// kind "gaussian" or "logistic" (sigma carries the scale); head int64[L];
+// mu, sigma float32[S, L]; feed int32[S, L]; edges float32[K+1]
+// -> (head, idx int32[S, L], reads int32[L]).
+std::vector<Tensor> pop_grid_cdf(const Tensor& head, const Tensor& mu,
+                                 const Tensor& sigma, const Tensor& feed,
+                                 const Tensor& edges, const std::string& kind,
+                                 int64_t lat_bits, int64_t precision) {
+  return pop_grid(head, &mu, &sigma, feed, &edges, cdf_kind(kind), lat_bits,
+                  precision);
 }
 
 // head int64[L]; feed int32[S, L] -> (head, idx int32[S, L], reads).
 std::vector<Tensor> pop_grid_uniform(const Tensor& head, const Tensor& feed,
                                      int64_t lat_bits, int64_t precision) {
-  return pop_grid(head, nullptr, nullptr, feed, nullptr, lat_bits,
+  return pop_grid(head, nullptr, nullptr, feed, nullptr, kUniform, lat_bits,
                   precision);
 }
 
-// idx int32[S, L]; mu, sigma float32[S, L]; edges float32[K+1]
-// -> (start int32[S, L], freq int32[S, L]).
+// idx int32[S, L]; mu, sigma float32[S, L]; edges float32[K+1]; kind
+// "gaussian" or "logistic" -> (start int32[S, L], freq int32[S, L]).
 std::vector<Tensor> grid_starts(const Tensor& idx, const Tensor& mu,
                                 const Tensor& sigma, const Tensor& edges,
-                                int64_t lat_bits, int64_t precision) {
+                                const std::string& kind, int64_t lat_bits,
+                                int64_t precision) {
+  const int k = cdf_kind(kind);
   const torch::Device dev = card(idx);
   need(idx, "idx", torch::kInt32, idx.sizes(), dev);
   need(mu, "mu", torch::kFloat32, idx.sizes(), dev);
@@ -227,7 +242,7 @@ std::vector<Tensor> grid_starts(const Tensor& idx, const Tensor& mu,
                idx.data_ptr<int32_t>(), mu.data_ptr<float>(),
                sigma.data_ptr<float>(), edges.data_ptr<float>(),
                start.data_ptr<int32_t>(), freq.data_ptr<int32_t>(),
-               idx.numel(), lat_bits, precision,
+               idx.numel(), k, lat_bits, precision,
                at::cuda::getCurrentCUDAStream()),
            "grid_starts");
   return {start, freq};
@@ -238,7 +253,7 @@ PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
   m.def("pop_table_emit", &pop_table_emit);
   m.def("pop_slots", &pop_slots);
   m.def("pop_dyntable_emit", &pop_dyntable_emit);
-  m.def("pop_grid_gaussian", &pop_grid_gaussian);
+  m.def("pop_grid_cdf", &pop_grid_cdf);
   m.def("pop_grid_uniform", &pop_grid_uniform);
   m.def("grid_starts", &grid_starts);
 }

@@ -9,11 +9,12 @@ with the step loop inside the thread (the Pallas ``fori_loop``):
                             table per lane);
   * ``pop_dyntable_emit`` - ``kernel.py:196 _pop_dyntable_kernel``;
   * ``pop_grid_emit``     - ``kernel.py:266 _pop_grid_kernel`` (kinds
-                            ``gaussian`` and ``uniform``);
-  * ``grid_starts``       - the push side's Gaussian starts, XLA code in
-                            the reference (``codecs/compile.py:357``); a
+                            ``gaussian``, ``logistic`` and ``uniform``);
+  * ``grid_starts``       - the push side's Gaussian and logistic starts,
+                            XLA code in the reference
+                            (``codecs/compile.py:97-118``, ``:357``); a
                             kernel here so that encoder and decoder share
-                            ``common/ndtr.cuh``.
+                            ``common/ndtr.cuh`` and ``common/xla_math.cuh``.
 
 Build: ``torch.utils.cpp_extension.load`` compiles the six sources and
 ``csrc/bindings.cpp`` (typed ``torch::Tensor`` entry points that check
@@ -55,11 +56,13 @@ SOURCES = {
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "--fmad=false",
               "-prec-div=true", "-ftz=false", "-O3"]
 
-#: launches per kernel (the grid pop per kind) since ``reset_launches()``
+#: launches per kernel (the grid pop and starts per kind) since
+#: ``reset_launches()``
 LAUNCHES: Dict[str, int] = {
     "push_emit": 0, "pop_slots": 0, "pop_table_emit": 0,
     "pop_dyntable_emit": 0, "pop_grid_emit/gaussian": 0,
-    "pop_grid_emit/uniform": 0, "grid_starts": 0}
+    "pop_grid_emit/logistic": 0, "pop_grid_emit/uniform": 0,
+    "grid_starts/gaussian": 0, "grid_starts/logistic": 0}
 
 _EXT = None
 
@@ -128,22 +131,24 @@ def pop_dyntable_emit(head: torch.Tensor, tables: torch.Tensor,
 def pop_grid_emit(head: torch.Tensor, mu: torch.Tensor, sigma: torch.Tensor,
                   feed: torch.Tensor, edges: torch.Tensor, kind: str,
                   lat_bits: int, precision: int):
-    """head int64[L]; mu/sigma float32[S, L] (unused for ``uniform``);
-    feed int32[S, L]; edges float32[K+1] -> (head, idx int32[S, L],
-    reads int32[L])."""
+    """head int64[L]; mu/sigma float32[S, L] (unused for ``uniform``;
+    sigma is the ``logistic`` scale); feed int32[S, L]; edges
+    float32[K+1] -> (head, idx int32[S, L], reads int32[L])."""
     from repro_torch.kernels.ans.twin import check_kind
 
     check_kind(kind)
-    if kind == "gaussian":
-        return _launch("pop_grid_emit/gaussian", "pop_grid_gaussian", head,
-                       mu, sigma, feed, edges, lat_bits, precision)
-    return _launch("pop_grid_emit/uniform", "pop_grid_uniform", head, feed,
-                   lat_bits, precision)
+    if kind == "uniform":
+        return _launch("pop_grid_emit/uniform", "pop_grid_uniform", head,
+                       feed, lat_bits, precision)
+    return _launch(f"pop_grid_emit/{kind}", "pop_grid_cdf", head, mu, sigma,
+                   feed, edges, kind, lat_bits, precision)
 
 
 def grid_starts(idx: torch.Tensor, mu: torch.Tensor, sigma: torch.Tensor,
-                edges: torch.Tensor, lat_bits: int, precision: int):
-    """idx int32[S, L]; mu/sigma float32[S, L]; edges float32[K+1] ->
-    (start int32[S, L], freq int32[S, L])."""
-    return _launch("grid_starts", "grid_starts", idx, mu, sigma, edges,
-                   lat_bits, precision)
+                edges: torch.Tensor, lat_bits: int, precision: int,
+                kind: str = "gaussian"):
+    """idx int32[S, L]; mu/sigma float32[S, L]; edges float32[K+1]; kind
+    ``gaussian`` or ``logistic`` -> (start int32[S, L], freq
+    int32[S, L])."""
+    return _launch(f"grid_starts/{kind}", "grid_starts", idx, mu, sigma,
+                   edges, kind, lat_bits, precision)

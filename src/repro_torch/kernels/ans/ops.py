@@ -9,7 +9,8 @@ reference:
 
   * push: the kernel emits a dense [steps, lanes] (chunk, need) list; a
     cumsum turns it into stack positions and one scatter appends the
-    chunks (``ops.py:63-74`` of the reference);
+    chunks (``ops.py:63-74`` of the reference), the ones not kept into
+    the spill column (``ans.append``), with no host sync;
   * table push: the (start, freq) of each symbol is gathered from its
     lane's static table, then pushed as above;
   * pop: each pop reads at most one chunk, in stack order, so the next
@@ -42,7 +43,8 @@ def push_many(stack: ans.ANSStack, starts: torch.Tensor, freqs: torch.Tensor,
               precision: int = ans.DEFAULT_PRECISION,
               backend: Optional[str] = None) -> ans.ANSStack:
     """Push ``steps`` symbols per lane; starts/freqs [steps, lanes] in
-    push order. Updates ``stack.buf`` in place."""
+    push order. Updates ``stack.buf`` in place; never waits for the
+    device."""
     steps, lanes = starts.shape
     name = dispatch.resolve("push_many", stack.device, backend)
     if name == "ref":
@@ -54,10 +56,11 @@ def push_many(stack: ans.ANSStack, starts: torch.Tensor, freqs: torch.Tensor,
     pos = stack.ptr[None, :] + torch.cumsum(need64, dim=0) - need64
     emitted = need.bool()
     keep = emitted & (pos < stack.capacity)
-    cols = torch.arange(lanes, device=head.device).expand(steps, lanes)
-    stack.buf[cols[keep], pos[keep]] = chunks[keep]
+    rows = torch.arange(lanes, device=head.device).expand(steps, lanes)
+    buf = ans.append(stack.buf, rows, pos, chunks, keep)
     over = (emitted & ~keep).sum(dim=0)
-    return stack.replace(head=head, ptr=stack.ptr + need64.sum(dim=0),
+    return stack.replace(head=head, buf=buf,
+                         ptr=stack.ptr + need64.sum(dim=0),
                          overflows=stack.overflows + over)
 
 
@@ -159,7 +162,8 @@ def pop_many_grid(stack: ans.ANSStack, kind: str, mu: Optional[torch.Tensor],
                   ) -> Tuple[ans.ANSStack, torch.Tensor]:
     """Fused bucketize + pop over the N(0,1) bucket grid: ``steps`` bucket
     indices per lane under per-step ``gaussian`` (mu, sigma [steps,
-    lanes]) or ``uniform`` (mu/sigma unused) distributions."""
+    lanes]), ``logistic`` (mu, scale) or ``uniform`` (mu/sigma unused)
+    distributions."""
     T.check_kind(kind)
     name = dispatch.resolve("pop_many_grid", stack.device, backend)
     if name == "ref":
@@ -167,7 +171,7 @@ def pop_many_grid(stack: ans.ANSStack, kind: str, mu: Optional[torch.Tensor],
                                    precision)
     emit = K.pop_grid_emit if name == "cuda" else T.pop_grid_emit
     feed = _chunk_feed(stack, steps)
-    if kind == "gaussian":
+    if kind != "uniform":
         mu = mu.to(torch.float32).contiguous()
         sigma = sigma.to(torch.float32).contiguous()
         edges = discretize.edge_table(lat_bits, stack.device)
@@ -180,14 +184,17 @@ def pop_many_grid(stack: ans.ANSStack, kind: str, mu: Optional[torch.Tensor],
 
 def grid_starts(idx: torch.Tensor, mu: torch.Tensor, sigma: torch.Tensor,
                 lat_bits: int, precision: int = ans.DEFAULT_PRECISION,
-                backend: Optional[str] = None
+                backend: Optional[str] = None, kind: str = "gaussian"
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(start, freq) of Gaussian grid buckets ``idx`` [steps, lanes]:
-    ``F(idx)`` and ``F(idx+1) - F(idx)``, the same CDF bits the pop side
-    inverts."""
+    """(start, freq) of ``gaussian`` or ``logistic`` grid buckets ``idx``
+    [steps, lanes]: ``F(idx)`` and ``F(idx+1) - F(idx)``, the same CDF
+    bits the pop side inverts."""
+    if kind not in ("gaussian", "logistic"):
+        raise ValueError(f"kernels.ans: grid_starts takes the gaussian or "
+                         f"logistic kind, got {kind!r}")
     name = dispatch.resolve("grid_starts", idx.device, backend)
     if name == "ref":
-        f = discretize.posterior_starts_fn(mu, sigma, lat_bits, precision)
+        f = T.cdf_starts_fn(kind)(mu, sigma, lat_bits, precision)
         i = idx.to(torch.int64)
         start = f(i)
         return start, f(i + 1) - start
@@ -195,4 +202,4 @@ def grid_starts(idx: torch.Tensor, mu: torch.Tensor, sigma: torch.Tensor,
     sigma = sigma.to(torch.float32).contiguous()
     edges = discretize.edge_table(lat_bits, idx.device)
     emit = K.grid_starts if name == "cuda" else T.grid_starts
-    return emit(_i32(idx), mu, sigma, edges, lat_bits, precision)
+    return emit(_i32(idx), mu, sigma, edges, lat_bits, precision, kind)

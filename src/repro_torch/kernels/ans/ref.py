@@ -7,6 +7,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.core import ans, discretize
+from repro_torch.codecs.leaves import DiscretizedLogistic
 
 
 def push_many_ref(stack: ans.ANSStack, starts: torch.Tensor,
@@ -53,16 +54,19 @@ def pop_many_dyn_ref(stack: ans.ANSStack, tables: torch.Tensor,
 def pop_many_grid_ref(stack: ans.ANSStack, kind: str, mu, sigma, steps: int,
                       lat_bits: int, precision: int):
     """Sequential per-position grid pops (``discretize.pop_posterior`` /
-    ``pop_prior``); returns (stack, symbols int32[S, L])."""
+    ``DiscretizedLogistic`` / ``pop_prior``); returns (stack, symbols
+    int32[S, L])."""
     syms = []
     for t in range(steps):
         if kind == "gaussian":
             stack, idx = discretize.pop_posterior(stack, mu[t], sigma[t],
                                                   lat_bits, precision)
+        elif kind == "logistic":
+            stack, idx = DiscretizedLogistic(mu[t], sigma[t], lat_bits,
+                                             precision).pop(stack)
         elif kind == "uniform":
             stack, idx = discretize.pop_prior(stack, lat_bits, precision)
         else:
-            raise ValueError(f"kernels.ans.ref: grid kind {kind!r} is not "
-                             "ported")
+            raise ValueError(f"kernels.ans.ref: unknown grid kind {kind!r}")
         syms.append(idx)
     return stack, torch.stack(syms).to(torch.int32)

@@ -8,7 +8,9 @@ integers: the loop bodies follow ``repro/kernels/ans/kernel.py``
 expression for expression, in int64 masked to 32 bits (H5: torch's CPU
 ``uint32`` lacks the ops). The grid CDF is ``core/discretize``'s
 ``posterior_starts_fn``, on ``core/xla_ndtr``, so it is bit-identical to
-the kernels' ``ndtr.cuh``.
+the kernels' ``ndtr.cuh``; the logistic CDF is ``codecs/leaves``'
+``logistic_starts_fn``, on ``xla_ndtr.sigmoid_f32``, bit-identical to
+``xla_math.cuh``.
 
 These are the CPU path of ``ops.py`` and the oracle ``chip_smoke.py``
 holds the kernels to; nothing on the card's main path calls them.
@@ -16,14 +18,15 @@ holds the kernels to; nothing on the card's main path calls them.
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Callable, Tuple
 
 import torch
 
 from repro_torch.core import ans
 from repro_torch.core.discretize import bisect, posterior_starts_fn
+from repro_torch.codecs.leaves import logistic_starts_fn
 
-GRID_KINDS = ("gaussian", "uniform")
+GRID_KINDS = ("gaussian", "logistic", "uniform")
 
 _M32 = ans.MASK32
 
@@ -109,10 +112,6 @@ def pop_dyntable_emit(head: torch.Tensor, tables: torch.Tensor,
 
 
 def check_kind(kind: str) -> None:
-    if kind == "logistic":
-        raise ValueError(
-            "kernels.ans: grid kind 'logistic' is not ported yet "
-            "(ROADMAP queue 2, item 2)")
     if kind not in GRID_KINDS:
         raise ValueError(
             f"kernels.ans: unknown grid kind {kind!r} (expected one of "
@@ -124,8 +123,8 @@ def pop_grid_emit(head: torch.Tensor, mu: torch.Tensor, sigma: torch.Tensor,
                   lat_bits: int, precision: int
                   ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Fused bucketize + pop. head [L]; mu/sigma float32[S, L] (ignored
-    for ``uniform``); feed [S, L]; edges float32[K+1] -> (head,
-    idx int32[S, L], reads int32[L])."""
+    for ``uniform``; sigma is the scale of ``logistic``); feed [S, L];
+    edges float32[K+1] -> (head, idx int32[S, L], reads int32[L])."""
     check_kind(kind)
     steps = feed.shape[0]
     shift = precision - lat_bits
@@ -139,8 +138,7 @@ def pop_grid_emit(head: torch.Tensor, mu: torch.Tensor, sigma: torch.Tensor,
             start = idx << shift
             freq = torch.full_like(start, 1 << shift)
         else:
-            f = posterior_starts_fn(mu[t], sigma[t], lat_bits, precision,
-                                    edges)
+            f = _cdf_fn(kind, mu[t], sigma[t], edges, lat_bits, precision)
             idx = bisect(f, slot, lat_bits)
             start = f(idx)
             freq = f(idx + 1) - start
@@ -150,11 +148,44 @@ def pop_grid_emit(head: torch.Tensor, mu: torch.Tensor, sigma: torch.Tensor,
     return h, idxs, r.to(torch.int32)
 
 
+def cdf_starts_fn(kind: str) -> Callable:
+    """The pointwise starts builder of a CDF grid kind."""
+    return logistic_starts_fn if kind == "logistic" else posterior_starts_fn
+
+
+#: torch's CPU parallel grain (``at::internal::GRAIN_SIZE``): elementwise
+#: ops on fewer elements run on one thread
+_CPU_GRAIN = 32768
+
+
+def _cdf_fn(kind: str, mu: torch.Tensor, sigma: torch.Tensor,
+            edges: torch.Tensor, lat_bits: int,
+            precision: int) -> Callable[[torch.Tensor], torch.Tensor]:
+    """``F`` of one step's lanes for the bisection. Where the whole table
+    ``F(0..K)`` of every lane is small - under the CPU's parallel grain,
+    or on a card - it is built in one elementwise pass (``lat_bits + 3``
+    passes over the lanes cost more in launches) and ``F`` reads it;
+    elsewhere ``F`` is evaluated where the bisection asks (a table would
+    cost more in arithmetic, and, above the grain, start threads that
+    several test processes on one machine fight over). Either way, the
+    same integers."""
+    k = 1 << lat_bits
+    starts = cdf_starts_fn(kind)
+    if mu.device.type != "cuda" and mu.shape[0] * (k + 1) > _CPU_GRAIN:
+        return starts(mu, sigma, lat_bits, precision, edges)
+    i = torch.arange(k + 1, device=mu.device)[None, :]
+    table = starts(mu[:, None], sigma[:, None], lat_bits, precision,
+                   edges)(i)
+    return lambda idx: table.gather(1, idx[:, None])[:, 0]
+
+
 def grid_starts(idx: torch.Tensor, mu: torch.Tensor, sigma: torch.Tensor,
-                edges: torch.Tensor, lat_bits: int, precision: int
+                edges: torch.Tensor, lat_bits: int, precision: int,
+                kind: str = "gaussian"
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Gaussian push-side starts: (start, freq) int32, elementwise."""
-    f = posterior_starts_fn(mu, sigma, lat_bits, precision, edges)
+    """Push-side starts of the ``gaussian`` or ``logistic`` grid: (start,
+    freq) int32, elementwise."""
+    f = cdf_starts_fn(kind)(mu, sigma, lat_bits, precision, edges)
     i = idx.to(torch.int64)
     start = f(i)
     return start.to(torch.int32), (f(i + 1) - start).to(torch.int32)

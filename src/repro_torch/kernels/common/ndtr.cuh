@@ -8,43 +8,19 @@
 // consumes it (read from the machine code of jax.jit(ndtr)): every
 // Horner step and Cody-Waite step is one fma. The multiplies that stay
 // separate are x*x, e * (1/|x|) * P, x * P(x^2), r*r and the final * 0.5.
-// The constants are the float32 values in XLA's optimised IR.
+// The constants are the float32 values in XLA's optimised IR. exp_f32 and
+// the helpers are shared with the logistic CDF (xla_math.cuh).
 #pragma once
+
+#include "xla_math.cuh"
 
 namespace xla_ndtr {
 
-__device__ __forceinline__ float fma_(float a, float b, float c) {
-  return __fmaf_rn(a, b, c);
-}
-__device__ __forceinline__ float mul(float a, float b) {
-  return __fmul_rn(a, b);
-}
-__device__ __forceinline__ float add(float a, float b) {
-  return __fadd_rn(a, b);
-}
-__device__ __forceinline__ float sub(float a, float b) {
-  return __fsub_rn(a, b);
-}
-
-// XLA's exp_f32: Cody-Waite reduction, degree-5 polynomial, 2^n from bits.
-__device__ __forceinline__ float exp_f32(float x) {
-  const float lo = -0x1.5f3334p+6f, hi = 0x1.633334p+6f;   // -87.8, 88.8
-  x = x < lo ? lo : x;            // comparisons keep NaN, as XLA's do
-  x = x > hi ? hi : x;
-  float fx = floorf(fma_(x, 0x1.715476p+0f, 0.5f));
-  fx = fx < -127.0f ? -127.0f : fx;
-  fx = fx > 127.0f ? 127.0f : fx;
-  float r = fma_(fx, -0x1.63p-1f, x);
-  r = fma_(fx, 0x1.bd0106p-13f, r);
-  float p = fma_(r, 0x1.a0d2cep-13f, 0x1.6e879cp-10f);
-  p = fma_(p, r, 0x1.11121p-7f);
-  p = fma_(p, r, 0x1.555382p-5f);
-  p = fma_(p, r, 0x1.555554p-3f);
-  p = fma_(p, r, 0.5f);
-  p = add(fma_(p, mul(r, r), r), 1.0f);
-  int n = (fx == fx) ? (int)fx : 0;
-  return mul(p, __int_as_float((n + 127) << 23));
-}
+using xla_math::add;
+using xla_math::exp_f32;
+using xla_math::fma_;
+using xla_math::mul;
+using xla_math::sub;
 
 __device__ __forceinline__ float ndtr(float a) {
   const float half_sqrt2 = 0x1.6a09e6p-1f;
@@ -100,7 +76,7 @@ __device__ __forceinline__ float ndtr(float a) {
   float upper = x > 0.0f ? sub(2.0f, erfc) : erfc;
   float y = mul(ax < half_sqrt2 ? add(erf, 1.0f) : upper, 0.5f);
   // XLA's CPU runtime flushes subnormal results to zero.
-  return fabsf(y) < 0x1p-126f ? mul(y, 0.0f) : y;
+  return xla_math::flush(y);
 }
 
 // F(i) = floor(ndtr((z_i - mu) * (1/sigma)) * (2^p - K)) + i, with the

@@ -74,7 +74,7 @@ class _PendingBlock:
     xs: Any
     k: int
     stack: ans.ANSStack
-    bits_before: float
+    bits_before: torch.Tensor
     cap: int
     chunks: int
 
@@ -169,6 +169,14 @@ def _resolve_block_codec(codec: Optional[Codec],
         return programs[k]
 
     return compiled_fn
+
+
+def _faults(stack: ans.ANSStack) -> Tuple[int, int]:
+    """(overflows, underflows) of a coded block, in one read from the
+    device: the one wait per block that grow-and-retry needs."""
+    over, under = torch.stack([stack.overflows.sum(),
+                               stack.underflows.sum()]).tolist()
+    return over, under
 
 
 def _refuse_verify(verify: bool, where: str) -> None:
@@ -371,7 +379,9 @@ class StreamEncoder:
 
     def _push_once(self, xs: Any, k: int, cap: int, chunks: int,
                    heads: Optional[torch.Tensor],
-                   block_index: int) -> Tuple[ans.ANSStack, float]:
+                   block_index: int) -> Tuple[ans.ANSStack, torch.Tensor]:
+        """Push one block onto a fresh stack; nothing here waits for the
+        device (the content bits stay a tensor until ``_commit``)."""
         codec = self._block_codec_fn(k)
         stack0 = self._block_stack(cap, chunks, block_index, heads)
         bits_before = ans.stack_content_bits(stack0)
@@ -390,9 +400,10 @@ class StreamEncoder:
             chunks = max(32, chunks * 4)
         return cap, chunks
 
-    def _commit(self, stack: ans.ANSStack, bits_before: float, k: int,
-                cap: int, chunks: int) -> bytes:
-        self.net_bits += ans.stack_content_bits(stack) - bits_before
+    def _commit(self, stack: ans.ANSStack, bits_before: torch.Tensor,
+                k: int, cap: int, chunks: int) -> bytes:
+        self.net_bits += (float(ans.stack_content_bits(stack))
+                          - float(bits_before))
         self._heads = stack.head
         self._capacity, self._init_chunks = cap, chunks
         msg, lengths = ans.flatten(stack)
@@ -408,8 +419,7 @@ class StreamEncoder:
         for _ in range(retries):
             stack, bits_before = self._push_once(
                 xs, k, cap, chunks, self._heads, self.n_blocks)
-            over = int(stack.overflows.sum())
-            under = int(stack.underflows.sum())
+            over, under = _faults(stack)
             if not over and not under:
                 return self._commit(stack, bits_before, k, cap, chunks)
             cap, chunks = self._grow(over, under, cap, chunks)
@@ -431,8 +441,7 @@ class StreamEncoder:
         it had to be redone with a grown capacity or clean-bit supply)."""
         pend = self._pending
         self._pending = None
-        over = int(pend.stack.overflows.sum())
-        under = int(pend.stack.underflows.sum())
+        over, under = _faults(pend.stack)
         if not over and not under:
             return self._commit(pend.stack, pend.bits_before, pend.k,
                                 pend.cap, pend.chunks), False
@@ -539,8 +548,7 @@ class StreamDecoder:
         stack = ans.unflatten(msg, lengths,
                               capacity=max(block.msg.shape[1] - 2, 8))
         stack, xs = self._block_codec_fn(block.n_symbols).pop(stack)
-        under = int(stack.underflows.sum())
-        over = int(stack.overflows.sum())
+        over, under = _faults(stack)
         if under or over:
             raise ValueError(
                 f"stream: corrupt block {self.n_blocks} "

@@ -191,3 +191,125 @@ def test_leaves_and_combinators_write_the_reference_wire():
     ga, gb = pc.decompress(port, want, device="cpu")
     np.testing.assert_array_equal(ga.numpy(), a)
     np.testing.assert_array_equal(gb.numpy(), b)
+
+
+# ---------------------------------------------------------------------------
+# Appends without a host sync (the spill column): the same stacks as the
+# reference's ``mode="drop"`` scatter, past capacity too, and no op on the
+# push path that reads a device value back to the host.
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("cap", [0, 3, 20])
+def test_appends_past_capacity_match_reference(cap):
+    """``seed_stack``, ``ans.push`` and ``ops.push_many`` into a stack too
+    small for them: buf, ptr and the overflow counts are the
+    reference's, and the spill column stays out of sight."""
+    from repro.kernels.ans import ops as ref_ops
+    from repro_torch.kernels.ans import ops
+
+    lanes = 4
+    with jax.threefry_partitionable(False):
+        ref = ref_container.fresh_stack(lanes, cap, seed=6, init_chunks=5)
+    port = container.fresh_stack(lanes, cap, seed=6, init_chunks=5,
+                                 device="cpu")
+    assert_same_stack(port, ref)
+    assert tuple(port.buf.shape) == (lanes, cap)
+    rng = np.random.default_rng(cap)
+    for _ in range(3):
+        freq = rng.integers(1, 64, lanes)
+        start = rng.integers(0, (1 << 16) - 64, lanes)
+        ref = ref_ans.push(ref, jnp.asarray(start, jnp.uint32),
+                           jnp.asarray(freq, jnp.uint32), 16)
+        port = ans.push(port, torch.from_numpy(start), torch.from_numpy(freq),
+                        16)
+        assert_same_stack(port, ref)
+    freqs = rng.integers(1, 256, (30, lanes))
+    starts = rng.integers(0, (1 << 16) - 256, (30, lanes))
+    ref = ref_ops.push_many(ref, jnp.asarray(starts, jnp.uint32),
+                            jnp.asarray(freqs, jnp.uint32), 16)
+    port = ops.push_many(port, torch.from_numpy(starts),
+                         torch.from_numpy(freqs), 16)
+    assert_same_stack(port, ref)
+    assert tuple(port.buf.shape) == (lanes, cap)
+    assert int(port.overflows.sum()) > 0
+    msg, lengths = ans.flatten(port)
+    rmsg, rlen = ref_ans.flatten(ref)
+    np.testing.assert_array_equal(msg.numpy(), np.asarray(rmsg))
+
+
+def test_append_to_a_buffer_without_a_spill_column():
+    """A stack built around a plain [lanes, cap] buffer still appends: the
+    returned buffer is a copy that has the spill column."""
+    buf = torch.arange(6, dtype=torch.int32).reshape(2, 3).contiguous()
+    keep = torch.tensor([True, False])
+    out = ans.append(buf, torch.arange(2), torch.tensor([1, 2]),
+                     torch.tensor([70, 80]), keep)
+    np.testing.assert_array_equal(out.numpy(), [[0, 70, 2], [3, 4, 5]])
+    again = ans.append(out, torch.arange(2), torch.tensor([0, 9]),
+                       torch.tensor([7, 9]), keep)
+    assert again.data_ptr() == out.data_ptr()      # in place this time
+    np.testing.assert_array_equal(again.numpy(), [[7, 70, 2], [3, 4, 5]])
+
+
+class _HostReads:
+    """A dispatch mode that records every op that reads a tensor's value
+    back to the host: an item or a bool, ``nonzero``, ``masked_select``,
+    and indexing with a boolean mask (a ``nonzero`` inside)."""
+
+    def __init__(self):
+        from torch.utils._python_dispatch import TorchDispatchMode
+
+        seen = self.seen = []
+
+        class Mode(TorchDispatchMode):
+            def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+                name = str(func.overloadpacket)
+                masks = name.startswith(("aten.index", "aten.index_put")) \
+                    and any(isinstance(t, torch.Tensor)
+                            and t.dtype == torch.bool for t in args[1])
+                if masks or name in ("aten.nonzero", "aten.masked_select",
+                                     "aten._local_scalar_dense",
+                                     "aten.is_nonzero", "aten.equal"):
+                    seen.append(name)
+                return func(*args, **(kwargs or {}))
+
+        self.mode = Mode()
+
+    def __enter__(self):
+        self.mode.__enter__()
+        return self
+
+    def __exit__(self, *exc):
+        self.mode.__exit__(*exc)
+
+
+def test_block_push_reads_nothing_back_from_the_device():
+    """One pipelined-stream block push of the fixed-point VAE (the
+    compiled chain on a seeded stack) and the stack's content bits run
+    with no op that waits for the device; the boolean-mask append this
+    replaced is caught by the same check."""
+    from repro_torch import codecs as pc
+    from repro_torch import weights
+    from repro_torch.models import vae
+    from repro_torch.stream import coder
+    from tests.golden.make_torch_fixtures import VAE_PARAMS
+
+    params = weights.from_jax_params(dict(np.load(VAE_PARAMS)), device="cpu")
+    codec = vae.make_bb_codec_q(params, vae.VAEConfig(36, 24, 6))
+    block = pc.compile(coder.BlockChain(codec, 2))
+    xs = torch.from_numpy(np.random.default_rng(3).integers(
+        0, 2, (2, 4, 36)).astype(np.int32))
+    stack = container.fresh_stack(4, 256, seed=0, init_chunks=16,
+                                  device="cpu")
+    block.push(container.fresh_stack(4, 256, seed=0, init_chunks=16,
+                                     device="cpu"), xs)   # warm the caches
+    with _HostReads() as reads:
+        stack = ans.seed_stack(stack, np.array([0, 5], np.uint32), 4)
+        pushed = block.push(stack, xs)
+        ans.stack_content_bits(pushed)
+    assert reads.seen == []
+    buf, keep = torch.zeros((2, 3), dtype=torch.int32), torch.tensor(
+        [True, False])
+    with _HostReads() as reads:
+        buf[torch.arange(2)[keep], torch.tensor([0, 1])[keep]] = 5
+    assert reads.seen

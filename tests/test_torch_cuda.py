@@ -148,3 +148,97 @@ def test_categorical_stream_on_the_card_equals_the_cpu_twin(kernel):
                                wires["cuda"], device="cuda")
     assert torch.equal(out.cpu(), torch.from_numpy(data))
     assert kernel.LAUNCHES["pop_table_emit"] == 3
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("precision", [12, 16])
+@pytest.mark.parametrize("lanes", [1, 3, 128, 130])
+def test_logistic_kernels_match_twin(kernel, lanes, precision):
+    """The logistic kinds of the grid pop and the push-side starts, with
+    scales down to 0.05 and locations out to the grid's tails."""
+    lb, c = _inputs(lanes, precision, seed=16)
+    rng = np.random.default_rng(lanes + precision)
+    c["sigma"] = torch.from_numpy(rng.uniform(0.05, 2.0, (STEPS, lanes))
+                                  .astype(np.float32))
+    g = {k: v.cuda() for k, v in c.items()}
+    e = discretize.edge_table(lb, "cpu")
+    kernel.reset_launches()
+    pairs = [
+        (kernel.pop_grid_emit(g["head"], g["mu"], g["sigma"], g["feed"],
+                              e.cuda(), "logistic", lb, precision),
+         twin.pop_grid_emit(c["head"], c["mu"], c["sigma"], c["feed"], e,
+                            "logistic", lb, precision)),
+        (kernel.grid_starts(g["idx"], g["mu"], g["sigma"], e.cuda(), lb,
+                            precision, "logistic"),
+         twin.grid_starts(c["idx"], c["mu"], c["sigma"], e, lb, precision,
+                          "logistic")),
+    ]
+    torch.cuda.synchronize()
+    for got, want in pairs:
+        for a, b in zip(got, want):
+            assert torch.equal(a.cpu().to(torch.int64), b.to(torch.int64))
+    assert kernel.LAUNCHES["pop_grid_emit/logistic"] == 1
+    assert kernel.LAUNCHES["grid_starts/logistic"] == 1
+
+
+@pytest.mark.cuda
+def test_float_vae_eager_equals_compiled_on_the_card(kernel):
+    """The float VAE (36-24-6) on the card: the compiled codec writes the
+    eager codec's bytes and decodes them."""
+    from repro_torch.models import vae
+
+    cfg = vae.VAEConfig(36, 24, 6)
+    params = vae.init(cfg, torch.Generator().manual_seed(2), device="cuda")
+    chain = codecs.Chained(vae.make_bb_codec(params, cfg), 3)
+    data = torch.from_numpy(np.random.default_rng(4).integers(
+        0, 2, (3, 16, 36)).astype(np.int32)).cuda()
+    kw = dict(lanes=16, seed=0, device="cuda")
+    blob = codecs.compress(codecs.compile(chain), data, **kw)
+    assert blob == codecs.compress(chain, data, **kw)
+    assert torch.equal(codecs.decompress(codecs.compile(chain), blob,
+                                         device="cuda"), data)
+
+
+@pytest.mark.cuda
+def test_float_vae_bits_do_not_depend_on_input_layout(kernel):
+    """The network computes the same bits for a row-major input and for
+    the transposed view of the same values (cuBLAS would take another
+    kernel for the latter)."""
+    from repro_torch.models import vae
+
+    cfg = vae.VAEConfig(36, 24, 6)
+    params = vae.init(cfg, torch.Generator().manual_seed(2), device="cuda")
+    s = torch.from_numpy(np.random.default_rng(6).integers(
+        0, 2, (36, 16)).astype(np.int32)).cuda().T
+    y = torch.randn((6, 16), device="cuda").T
+    for a, b in zip(vae.encode(params, cfg, s),
+                    vae.encode(params, cfg, s.contiguous())):
+        assert torch.equal(a, b)
+    assert torch.equal(vae.decode(params, cfg, y),
+                       vae.decode(params, cfg, y.contiguous()))
+
+
+@pytest.mark.cuda
+def test_block_push_does_not_sync(kernel):
+    """A compiled block push of the fixed-point VAE on a seeded stack runs
+    under ``set_sync_debug_mode("error")``."""
+    from repro_torch.models import vae
+    from repro_torch.stream import coder
+
+    cfg = vae.VAEConfig(36, 24, 6)
+    params = vae.init(cfg, torch.Generator().manual_seed(3), device="cuda")
+    block = codecs.compile(coder.BlockChain(vae.make_bb_codec_q(params, cfg),
+                                            2))
+    xs = torch.from_numpy(np.random.default_rng(5).integers(
+        0, 2, (2, 8, 36)).astype(np.int32)).cuda()
+    fresh = lambda: container.fresh_stack(8, 256, seed=0, init_chunks=16,
+                                          device="cuda")
+    want = block.push(fresh(), xs)
+    stack = fresh()
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = block.push(stack, xs)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert torch.equal(got.buf, want.buf) and torch.equal(got.head, want.head)

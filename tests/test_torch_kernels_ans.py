@@ -235,8 +235,9 @@ def test_dispatch_precedence_and_refusals(monkeypatch):
         dispatch.resolve("push_many", torch.device("cuda"), "torch")
     with pytest.raises(ValueError, match="unknown backend"):
         dispatch.resolve("push_many", cpu, "xla")
-    with pytest.raises(ValueError, match="logistic"):
-        twin.check_kind("logistic")
+    twin.check_kind("logistic")     # ported: no refusal
+    with pytest.raises(ValueError, match="unknown grid kind"):
+        twin.check_kind("laplace")
 
 
 def test_each_package_reads_only_its_own_backend_variable(monkeypatch):

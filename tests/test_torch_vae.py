@@ -136,7 +136,22 @@ def test_init_is_seeded_and_he_scaled():
 
 
 def test_compile_refuses_what_it_does_not_lower():
+    # A Repeat of Uniform leaves is lowered now, and writes the bytes of
+    # the interpreted Repeat.
+    rep = codecs.Repeat(lambda d: codecs.Uniform(4), 3)
+    data = _data((2, 3), seed=9) * 7
+    kw = dict(lanes=2, seed=0, init_chunks=0, device="cpu")
+    assert codecs.compress(codecs.compile(rep), data, **kw) == \
+        codecs.compress(rep, data, **kw)
+
+    class Opaque(codecs.Codec):
+        def push(self, stack, x):
+            return stack
+
+        def pop(self, stack):
+            return stack, None
+
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        codecs.compile(codecs.Repeat(lambda d: codecs.Uniform(4), 3))
+        codecs.compile(Opaque())
     with pytest.raises(ValueError, match="bernoulli"):
         vae.make_bb_codec_q({}, vae.paper_config("beta_binomial"))
