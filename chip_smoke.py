@@ -13,7 +13,9 @@ Phases, each on a line of its own; any failure exits non-zero:
      same seeded inputs on the card) at 4096 lanes and the main paths'
      step counts: mismatch count, CUDA-event time of kernel and plain
      version, and the least time the card could take (bytes over HBM rate
-     or flops over the FP32 rate);
+     or flops over the FP32 rate). The posterior bucketize also at 4097
+     lanes and lat_bits 12, with slots at 0 and 2^16 - 1, mu in [-8, 8]
+     and sigma in [1e-3, 30];
   4. the committed golden blobs ``tests/golden/bbx1_vae_fixedpoint.bin``,
      ``bbx2_stream.bin`` and ``bbx3_corpus.bin`` re-encoded on the card
      hex for hex and decoded losslessly;
@@ -48,9 +50,23 @@ Phases, each on a line of its own; any failure exits non-zero:
      BBX3 corpus, decoded, held to gzip and bz2 by the CLI's own gate);
      then its eager wire equals its compiled wire on the card over the
      8 chain steps at 1024 lanes, and the card's bits/dim at 64 lanes is
-     within 2% of the CPU twin's (float bytes differ between devices).
+     within 2% of the CPU twin's (float bytes differ between devices);
+ 11. the fixed-point HVAE at hvae-base2 widths (2 levels, ch 48, z_ch 4,
+     2 residual blocks; random weights from a seed) under Bit-Swap,
+     ``codecs.compile(Chained(make_bitswap_codec_q(...), 4))``, 1024 lanes
+     x 4 28 x 28 digits as BBX1: lossless, five timed reruns, and at 4
+     lanes over the first image the eager codec's blob and the CPU twin's
+     equal the card's;
+ 12. the float HVAE at the same widths with ``use_bucketize_kernel=True``
+     (eager; one bucketize launch per latent position), 256 lanes x 2
+     images: lossless, the same bytes as the plain eager codec and the
+     compiled one on the card, and exactly 2 x 784 x 2 bucketize launches
+     to encode and 784 x 2 to decode;
+ 13. the Table-1 CLI on ``--arch hvae-small2`` (trained by the CLI, a BBX3
+     corpus, its gate against gzip and bz2), then the card's bits/dim
+     against the CPU twin's at 8 lanes over 2 chain steps, within 2%.
 
-Each path (phases 5-10) runs with the kernel launch counts set to 0 just
+Each path (phases 5-13) runs with the kernel launch counts set to 0 just
 before it and read just after, and fails if one of its kernels was not
 launched.
 
@@ -58,7 +74,8 @@ The line before the last holds the per-kernel JSON record; the last line
 is ``{"ok": true, "device": {...}}``. Imports nothing of JAX or ``repro``.
 
 ``python3 chip_smoke.py --profile`` adds a ``torch.profiler`` trace of
-one more encode + decode of phases 5, 6, 8 and 9 (device busy share, time
+one more encode + decode of phases 5, 6, 8, 9, 11 and 12 (phase 12 over
+one image; device busy share, time
 per kernel and per host op, the count of ``aten::nonzero``, which must be
 0 in phases 5 and 6; the full tables go to
 ``build/smoke/profile_<phase>.txt``).
@@ -99,12 +116,36 @@ CLI_IMAGES, CLI_STEPS = 8192, 4000
 # bits-back path, which moves the rate about as much as another seed.
 TWIN_RATE_TOL = 0.02
 TABLE_STEPS = CAT_BLOCK   # pop_table_emit check: one block's pops
+# The bucketize check: the HVAE's grid (lat_bits 10, precision 16) at
+# LANES, and the largest committed grid at a lane count off the block
+# size.
+BK_CASES = ((LANES, 10), (LANES + 1, 12))
+# Phases 11 and 12: hvae-base2 widths on 28 x 28 digits.
+HV_LANES, HV_CHAIN = 1024, 4
+HVF_LANES, HVF_CHAIN = 256, 2
+# The eager fixed-point codec and the CPU twin run every latent position
+# one after another (784 per level), so they are held to the card's
+# bytes at a few lanes over the first image.
+HV_CHECK_LANES = 4
+# Clean chunks per lane for the HVAE blobs: the first posterior pop of a
+# 28 x 28 image pops up to 784 latents of at most 10 bits (490 chunks),
+# and a retried encode would count its launches twice.
+HV_INIT_CHUNKS = 1024
+# Phase 13: the CLI on hvae-small2. A block starts from fresh clean bits
+# (the first posterior pop of 392 latents takes up to 512 chunks, 8192
+# bits, after the stream's grow-and-retry), so the gate against bz2 needs
+# long blocks: 256 images a lane in one block at 32 lanes spread them to
+# 0.04 bits/dim. (At 64 lanes and blocks of 128, 0.08: wire 0.4570
+# against bz2 0.4697 after 4000 steps, -ELBO 0.3762, on an H100.)
+CLI13_IMAGES, CLI13_LANES, CLI13_BLOCK, CLI13_STEPS = 8192, 32, 256, 4000
+CLI13_TWIN_LANES, CLI13_TWIN_STEPS = 8, 2
 
 VAE_KERNELS = ("push_emit", "pop_dyntable_emit", "pop_grid_emit/gaussian",
                "pop_grid_emit/uniform", "grid_starts/gaussian")
 LOGISTIC_KERNELS = ("push_emit", "pop_grid_emit/logistic",
                     "grid_starts/logistic")
 CAT_KERNELS = ("push_emit", "pop_table_emit")
+HVAE_EAGER_KERNELS = ("bucketize", "grid_starts/gaussian")
 
 # H100 SXM published peaks (NVIDIA data sheet; at a 700 W power limit).
 HBM_BYTES_PER_S = 3.35e12
@@ -130,6 +171,7 @@ REPLACES = {
     "pop_grid_emit/logistic": "src/repro/kernels/ans/kernel.py:266",
     "grid_starts/gaussian": "src/repro/codecs/compile.py:357",
     "grid_starts/logistic": "src/repro/codecs/compile.py:97",
+    "bucketize": "src/repro/kernels/bucketize/kernel.py:37",
 }
 SOURCES = {
     "push_emit": "src/repro_torch/kernels/ans/csrc/push.cu",
@@ -141,6 +183,7 @@ SOURCES = {
     "pop_grid_emit/logistic": "src/repro_torch/kernels/ans/csrc/pop_grid.cu",
     "grid_starts/gaussian": "src/repro_torch/kernels/ans/csrc/grid_starts.cu",
     "grid_starts/logistic": "src/repro_torch/kernels/ans/csrc/grid_starts.cu",
+    "bucketize": "src/repro_torch/kernels/bucketize/csrc/bucketize.cu",
 }
 
 
@@ -310,27 +353,83 @@ def check_kernels():
     e_gpu = discretize.edge_table(10, "cuda")
     records, failed = [], False
     for name in REPLACES:
+        if name == "bucketize":
+            continue
         got = run(K, name, gpu, e_gpu)
         worst, bad = max_err(got, run(T, name, gpu, e_gpu))
         ms = cuda_ms(lambda: run(K, name, gpu, e_gpu), 20)
         plain_ms = cuda_span(lambda: run(T, name, gpu, e_gpu))[1]
-        nbytes, flops = work(name, got)
-        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-        t_ops = flops / FP32_FLOPS * 1e3
-        rec = {"name": name, "route": "cuda", "source": SOURCES[name],
-               "replaces": REPLACES[name], "launches": 0,
-               "max_abs_err": worst, "ms": ms, "plain_ms": plain_ms,
-               "bound_ms": max(t_bytes, t_ops),
-               "bound_by": "operations" if t_ops > t_bytes else "bytes",
-               "library_ms": None}
-        records.append(rec)
-        say(f"phase 3: {name}: mismatches {bad}, max_abs_err {worst}, "
-            f"kernel {ms:.4f} ms, plain {plain_ms:.2f} ms, bound "
-            f"{rec['bound_ms']:.5f} ms ({rec['bound_by']})")
+        records.append(record(name, worst, bad, ms, plain_ms,
+                              *work(name, got)))
         failed |= bad != 0
-    if failed:
+    rec, bad = check_bucketize()
+    records.append(rec)
+    if failed or bad:
         raise SystemExit("phase 3: a kernel disagrees with its plain version")
     return records
+
+
+def record(name: str, worst: int, bad: int, ms: float, plain_ms: float,
+           nbytes: int, flops: int, note: str = "") -> dict:
+    """Phase 3's record of kernel ``name`` and its line."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / FP32_FLOPS * 1e3
+    rec = {"name": name, "route": "cuda", "source": SOURCES[name],
+           "replaces": REPLACES[name], "launches": 0,
+           "max_abs_err": worst, "ms": ms, "plain_ms": plain_ms,
+           "bound_ms": max(t_bytes, t_ops),
+           "bound_by": "operations" if t_ops > t_bytes else "bytes",
+           "library_ms": None}
+    say(f"phase 3: {name}{note}: mismatches {bad}, max_abs_err {worst}, "
+        f"kernel {ms:.4f} ms, plain {plain_ms:.2f} ms, bound "
+        f"{rec['bound_ms']:.5f} ms ({rec['bound_by']})")
+    return rec
+
+
+def bucketize_inputs(lanes: int):
+    """Seeded (slot, mu, sigma) on the card: slots over [0, 2^16) with 0
+    and 2^16 - 1 among them, mu over [-8, 8] and sigma log-uniform over
+    [1e-3, 30], each range's ends included."""
+    import numpy as np
+    import torch
+    rng = np.random.default_rng(lanes)
+    slot = rng.integers(0, 1 << 16, lanes)
+    slot[:2] = (0, (1 << 16) - 1)
+    mu = rng.uniform(-8.0, 8.0, lanes)
+    mu[2:4] = (-8.0, 8.0)
+    sigma = np.exp(rng.uniform(np.log(1e-3), np.log(30.0), lanes))
+    sigma[4:6] = (1e-3, 30.0)
+    return (torch.from_numpy(slot.astype(np.int32)).cuda(),
+            torch.from_numpy(mu.astype(np.float32)).cuda(),
+            torch.from_numpy(sigma.astype(np.float32)).cuda())
+
+
+def check_bucketize() -> tuple:
+    """Phase 3 for the posterior bucketize: each of ``BK_CASES`` against
+    the plain version; returns (the record of the first case, the
+    mismatch count over all)."""
+    from repro_torch.core import discretize
+    from repro_torch.kernels.bucketize import kernel as BK
+    from repro_torch.kernels.bucketize import twin as BT
+
+    first, bad_all = None, 0
+    for lanes, lat_bits in BK_CASES:
+        slot, mu, sigma = bucketize_inputs(lanes)
+        edges = discretize.edge_table(lat_bits, "cuda")
+        call = lambda mod: mod.bucketize(slot, mu, sigma, edges, lat_bits,
+                                         16)
+        worst, bad = max_err(call(BK), call(BT))
+        ms = cuda_ms(lambda: call(BK), 20)
+        plain_ms = cuda_span(lambda: call(BT))[1]
+        # Each lane reads slot, mu, sigma and writes idx, start, freq;
+        # lat_bits + 1 bisection steps and the two ends evaluate F.
+        rec = record("bucketize", worst, bad, ms, plain_ms,
+                     24 * lanes + 4 * ((1 << lat_bits) + 1),
+                     (lat_bits + 3) * FLOPS_PER_F * lanes,
+                     f" ({lanes} lanes, lat_bits {lat_bits})")
+        first = first or rec
+        bad_all += bad
+    return first, bad_all
 
 
 def golden_vae(device: str):
@@ -717,6 +816,157 @@ def cli_path(card: str):
     return launches
 
 
+def base2_hvae(device: str, params=None):
+    """(config, weights) of hvae-base2: random from a seed, or ``params``
+    moved to ``device``."""
+    import torch
+    from repro_torch.configs import hvae_img
+    from repro_torch.models import hvae
+    from repro_torch.optim.adamw import tree_map
+
+    cfg = hvae_img.BASE2
+    if params is None:
+        return cfg, hvae.init(cfg, torch.Generator().manual_seed(0),
+                              device=device)
+    return cfg, tree_map(lambda t: t.to(device), params)
+
+
+def hvae_fixed_path(card: str, images):
+    """Phase 11: the fixed-point HVAE under Bit-Swap, compiled, as BBX1
+    over ``images`` [HV_CHAIN, HV_LANES, 784]; returns (launch counts,
+    encode, decode)."""
+    from repro_torch import codecs
+    from repro_torch.models import hvae
+
+    hw = (28, 28)
+    data = images.reshape(HV_CHAIN, HV_LANES, *hw)
+    cfg, params = base2_hvae("cuda")
+    codec = codecs.compile(codecs.Chained(
+        hvae.make_bitswap_codec_q(params, cfg, hw), HV_CHAIN))
+    kw = dict(seed=0, init_chunks=HV_INIT_CHUNKS, device="cuda")
+    encode = lambda: codecs.compress(codec, data, lanes=HV_LANES, **kw)
+    decode = lambda b: codecs.decompress(codec, b, device="cuda")
+    (blob, back), launches = counted(
+        "phase 11", VAE_KERNELS, lambda: (lambda b: (b, decode(b)))(encode()))
+    lossless = bool((back == data).all())
+    say(f"phase 11: fixed-point HVAE (hvae-base2 widths), {HV_LANES} lanes "
+        f"x {HV_CHAIN} images: {len(blob)} bytes, "
+        f"{8 * len(blob) / data.numel():.4f} bits/dim, lossless {lossless}")
+    if not lossless:
+        raise SystemExit("phase 11: the blob did not decode losslessly")
+    enc, dec = rates(HV_CHAIN * HV_LANES, encode, decode)
+    say(f"phase 11: {REPS} more runs, images/s median (min-max): encode "
+        f"{enc}, decode {dec} on {card}")
+    sub = data[:1, :HV_CHECK_LANES].contiguous()
+    chain = lambda c: codecs.Chained(c, 1)
+    t0 = time.perf_counter()
+    eager_blob = codecs.compress(chain(codec.source.inner), sub,
+                                 lanes=HV_CHECK_LANES, **kw)
+    t_eager = time.perf_counter() - t0
+    fused_blob = codecs.compress(codecs.compile(chain(codec.source.inner)),
+                                 sub, lanes=HV_CHECK_LANES, **kw)
+    say(f"phase 11: {HV_CHECK_LANES}-lane first image, eager wire "
+        f"{'==' if eager_blob == fused_blob else '!='} compiled wire on "
+        f"the card ({len(fused_blob)} bytes; eager {t_eager:.1f} s)")
+    if eager_blob != fused_blob:
+        raise SystemExit("phase 11: eager and compiled wires differ")
+    cfg, cpu_params = base2_hvae("cpu", params)
+    twin = codecs.compile(chain(hvae.make_bitswap_codec_q(cpu_params, cfg,
+                                                          hw)))
+    kw_cpu = dict(kw, device="cpu")
+    twin_check("phase 11", HV_CHECK_LANES, fused_blob, lambda: codecs.compress(
+        twin, sub.cpu(), lanes=HV_CHECK_LANES, **kw_cpu))
+    return launches, encode, decode
+
+
+def hvae_float_path(card: str, images):
+    """Phase 12: the float HVAE through the bucketize kernel, eager, over
+    ``images`` [HVF_CHAIN, HVF_LANES, 784]; returns (launch counts by
+    direction, a one-image encode, its decode)."""
+    from repro_torch import codecs
+    from repro_torch.models import hvae
+
+    hw = (28, 28)
+    data = images.reshape(HVF_CHAIN, HVF_LANES, *hw)
+    cfg, params = base2_hvae("cuda")
+    make = lambda n, **opt: codecs.Chained(
+        hvae.make_bitswap_codec(params, cfg, hw, **opt), n)
+    codec = make(HVF_CHAIN, use_bucketize_kernel=True)
+    kw = dict(lanes=HVF_LANES, seed=0, init_chunks=HV_INIT_CHUNKS,
+              device="cuda")
+    n_lat = 14 * 14 * cfg.z_ch
+    t0 = time.perf_counter()
+    (blob, info), enc = counted("phase 12 encode", HVAE_EAGER_KERNELS,
+                                lambda: codecs.compress(codec, data,
+                                                        with_info=True, **kw))
+    t_enc = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    back, dec = counted("phase 12 decode", HVAE_EAGER_KERNELS,
+                        lambda: codecs.decompress(codec, blob, device="cuda"))
+    t_dec = time.perf_counter() - t0
+    lossless = bool((back == data).all())
+    want = (cfg.levels * n_lat * HVF_CHAIN, n_lat * HVF_CHAIN)
+    say(f"phase 12: float HVAE (hvae-base2 widths) through the bucketize "
+        f"kernel, {HVF_LANES} lanes x {HVF_CHAIN} images: {len(blob)} "
+        f"bytes, {8 * len(blob) / data.numel():.4f} bits/dim, lossless "
+        f"{lossless}, retries {info['retries']}; bucketize launches encode "
+        f"{enc['bucketize']}, decode {dec['bucketize']} (want {want[0]}, "
+        f"{want[1]}); encode {t_enc:.2f} s, decode {t_dec:.2f} s (host "
+        f"clock) on {card}")
+    if not lossless or (enc["bucketize"], dec["bucketize"]) != want:
+        raise SystemExit("phase 12 failed")
+    t0 = time.perf_counter()
+    plain = codecs.compress(make(HVF_CHAIN), data, **kw)
+    t_plain = time.perf_counter() - t0
+    compiled = codecs.compress(make(HVF_CHAIN, compiled=True), data, **kw)
+    say(f"phase 12: plain eager wire {'==' if plain == blob else '!='}, "
+        f"compiled wire {'==' if compiled == blob else '!='} the kernel "
+        f"codec's on the card (plain {t_plain:.1f} s)")
+    if plain != blob or compiled != blob:
+        raise SystemExit("phase 12: the three codecs wrote different bytes")
+    one = make(1, use_bucketize_kernel=True)
+    encode = lambda: codecs.compress(one, data[:1], **kw)
+    decode = lambda b: codecs.decompress(one, b, device="cuda")
+    return {"encode": enc, "decode": dec}, encode, decode
+
+
+def hvae_cli_path(card: str):
+    """Phase 13: the Table-1 CLI on hvae-small2, then its card rate
+    against the CPU twin's; returns launch counts."""
+    from repro_torch import codecs
+    from repro_torch.launch import compress as cli
+
+    args = ["--arch", "hvae-small2", "--images", str(CLI13_IMAGES),
+            "--lanes", str(CLI13_LANES), "--shards", "1", "--train-steps",
+            str(CLI13_STEPS), "--block-symbols", str(CLI13_BLOCK)]
+    say(f"phase 13: python -m repro_torch.launch.compress {' '.join(args)}")
+    out, launches = counted("phase 13", VAE_KERNELS, lambda: cli.main(args))
+    say(f"phase 13: trained {CLI13_STEPS} steps in {out['train_s']:.2f} s; "
+        f"-ELBO {out['elbo_bpd']:.4f} bits/dim, wire "
+        f"{out['wire_bpd']:.4f}, gzip {out['baselines']['gzip']:.4f}, bz2 "
+        f"{out['baselines']['bz2']:.4f}; encode "
+        f"{out['encode_images_per_s']:.1f} images/s, decode "
+        f"{out['decode_images_per_s']:.1f} images/s (host clock, "
+        f"with the corpus framing) on {card}")
+    sub = out["data"][:CLI13_TWIN_STEPS, :CLI13_TWIN_LANES].contiguous()
+    kw = dict(lanes=CLI13_TWIN_LANES, seed=0, init_chunks=HV_INIT_CHUNKS)
+    chain = lambda c: codecs.compile(codecs.Chained(c, CLI13_TWIN_STEPS))
+    on_card = codecs.compress(chain(out["make_codec"]()), sub,
+                              device="cuda", **kw)
+    t0 = time.perf_counter()
+    on_cpu = codecs.compress(chain(out["make_codec"]("cpu")), sub.cpu(),
+                             device="cpu", **kw)
+    bpd = [8 * len(b) / sub.numel() for b in (on_card, on_cpu)]
+    close = abs(bpd[0] - bpd[1]) <= TWIN_RATE_TOL * bpd[1]
+    say(f"phase 13: {CLI13_TWIN_LANES}-lane {CLI13_TWIN_STEPS}-image "
+        f"bits/dim, card {bpd[0]:.4f} vs CPU twin {bpd[1]:.4f} (bytes "
+        f"{'identical' if on_card == on_cpu else 'different'}; tolerance "
+        f"{TWIN_RATE_TOL:.0%}; CPU twin {time.perf_counter() - t0:.1f} s)")
+    if not close:
+        raise SystemExit("phase 13: card and CPU twin rates disagree")
+    return launches
+
+
 def main_path(card: str, data):
     """Phase 5 on ``data`` [CHAIN, PATH_LANES, 784]; returns (launch
     counts, encode, decode, params)."""
@@ -858,6 +1108,16 @@ def main() -> int:
     stamp("phase 9")
     by_path["table1_cli"] = cli_path(smi)
     stamp("phase 10")
+    by_path["hvae_fixed"], *traced["phase11"] = hvae_fixed_path(
+        smi, images[:HV_CHAIN])
+    stamp("phase 11")
+    counts, *traced["phase12"] = hvae_float_path(
+        smi, images[:HVF_CHAIN, :HVF_LANES])
+    by_path["hvae_float_encode"] = counts["encode"]
+    by_path["hvae_float_decode"] = counts["decode"]
+    stamp("phase 12")
+    by_path["hvae_cli"] = hvae_cli_path(smi)
+    stamp("phase 13")
     if "--profile" in sys.argv[1:]:
         syncs = {label: profile(label, encode, decode)
                  for label, (encode, decode) in traced.items()}

@@ -10,7 +10,8 @@ from repro_torch.core.distributions import Bernoulli, Categorical
 from repro_torch.codecs.leaves import (DiscretizedGaussian,
                                        DiscretizedLogistic, PointwiseCDF,
                                        Uniform)
-from repro_torch.codecs.combinators import BBANS, Chained, Repeat, Serial, Shaped
+from repro_torch.codecs.combinators import (BBANS, BitSwap, Chained, Repeat,
+                                            Serial, Shaped, TreeCodec)
 from repro_torch.codecs.container import (ContainerError, blob_info,
                                           compress, decompress, fresh_stack)
 from repro_torch.codecs.quantize import (FixedPointFn, LutBernoulli,
@@ -20,7 +21,8 @@ from repro_torch.codecs.compile import CompiledCodec, compile
 __all__ = [
     "Codec", "Bernoulli", "Categorical",
     "DiscretizedGaussian", "DiscretizedLogistic", "PointwiseCDF", "Uniform",
-    "BBANS", "Chained", "Repeat", "Serial", "Shaped",
+    "BBANS", "BitSwap", "Chained", "Repeat", "Serial", "Shaped",
+    "TreeCodec",
     "compile", "CompiledCodec",
     "FixedPointFn", "LutBernoulli", "QuantConfig", "quantize_params",
     "compress", "decompress", "blob_info", "fresh_stack", "ContainerError",

@@ -1,17 +1,19 @@
 """Codec combinators (port of ``repro.codecs.combinators``): ``Serial``,
-``Repeat``, ``Shaped``, ``Chained`` and ``BBANS``. Each preserves the
-push/pop inverse contract: a composite pop runs the component pops in the
-reverse order of the pushes. ``TreeCodec`` and ``BitSwap`` are not ported
-yet (ROADMAP queue 1, item 3).
+``Repeat``, ``Shaped``, ``TreeCodec``, ``Chained``, ``BBANS`` and
+``BitSwap``. Each preserves the push/pop inverse contract: a composite pop
+runs the component pops in the reverse order of the pushes.
 
 JAX traces ``Repeat``/``Chained`` into ``lax`` loops; here they are
 Python loops (PyTorch runs eagerly), with the same symbol order.
+``TreeCodec`` visits its leaves in ``jax.tree_util``'s order (dict keys
+sorted, lists and tuples by position, ``None`` empty) through the small
+flattener below: another order would write other bytes.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Callable, Sequence, Tuple
+from typing import Any, Callable, Iterator, Sequence, Tuple
 
 import torch
 
@@ -81,6 +83,65 @@ class Shaped(Codec):
         return stack, flat.reshape((flat.shape[0],) + tuple(self.shape))
 
 
+def tree_leaves(tree: Any) -> list:
+    """The leaves of a tree of dicts, lists and tuples in
+    ``jax.tree_util`` order: dict values by sorted key, sequences by
+    position, ``None`` holding none."""
+    if isinstance(tree, dict):
+        return [leaf for k in sorted(tree) for leaf in tree_leaves(tree[k])]
+    if isinstance(tree, (list, tuple)):
+        return [leaf for v in tree for leaf in tree_leaves(v)]
+    return [] if tree is None else [tree]
+
+
+def tree_unflatten(tree: Any, leaves: Iterator[Any]) -> Any:
+    """``tree``'s structure with its leaves replaced, in ``tree_leaves``
+    order, by the next items of ``leaves``."""
+    if isinstance(tree, dict):
+        return {k: tree_unflatten(tree[k], leaves) for k in sorted(tree)}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(tree_unflatten(v, leaves) for v in tree)
+    return None if tree is None else next(leaves)
+
+
+def flatten_up_to(tree: Any, x: Any) -> list:
+    """The subtrees of ``x`` at the leaf positions of ``tree``, in
+    ``tree_leaves`` order; raises when ``x`` lacks ``tree``'s structure."""
+    if isinstance(tree, dict):
+        if not isinstance(x, dict) or set(x) != set(tree):
+            raise ValueError(f"TreeCodec: symbols {x!r:.80} do not match "
+                             f"the codec keys {sorted(tree)}")
+        return [v for k in sorted(tree) for v in flatten_up_to(tree[k], x[k])]
+    if isinstance(tree, (list, tuple)):
+        if not isinstance(x, (list, tuple)) or len(x) != len(tree):
+            raise ValueError(f"TreeCodec: symbols {x!r:.80} do not match "
+                             f"a codec sequence of {len(tree)}")
+        return [v for t, xi in zip(tree, x) for v in flatten_up_to(t, xi)]
+    return [] if tree is None else [x]
+
+
+@dataclasses.dataclass(frozen=True)
+class TreeCodec(Codec):
+    """A tree of codecs (dicts, lists, tuples) over a matching tree of
+    symbols; leaves push in reverse ``tree_leaves`` order, so pops return
+    them in order."""
+
+    tree: Any
+
+    def push(self, stack: ans.ANSStack, x: Any) -> ans.ANSStack:
+        pairs = list(zip(tree_leaves(self.tree), flatten_up_to(self.tree, x)))
+        for codec, xi in reversed(pairs):
+            stack = codec.push(stack, xi)
+        return stack
+
+    def pop(self, stack: ans.ANSStack) -> Tuple[ans.ANSStack, Any]:
+        out = []
+        for codec in tree_leaves(self.tree):
+            stack, xi = codec.pop(stack)
+            out.append(xi)
+        return stack, tree_unflatten(self.tree, iter(out))
+
+
 def check_chain_length(n: int, data: torch.Tensor) -> None:
     if data.shape[0] != n:
         raise ValueError(
@@ -130,3 +191,36 @@ class BBANS(Codec):
         stack, s = self.likelihood(y).pop(stack)
         stack = self.posterior(s).push(stack, y)
         return stack, s
+
+
+@dataclasses.dataclass(frozen=True)
+class BitSwap(Codec):
+    """Hierarchical bits back with interleaved pops and pushes (Bit-Swap,
+    Kingma, Abbeel & Ho, 2019) over a Markov chain s <- z_1 <- ... <- z_L.
+
+    ``layers`` is bottom-up ``(posterior_fn, likelihood_fn)`` pairs: layer
+    l's context is the variable below it (``s`` for l = 1), which
+    ``posterior_fn(ctx)`` codes ``z_l`` under and ``likelihood_fn(z_l)``
+    codes the context under; ``prior`` codes ``z_L``. Popping z_l and at
+    once pushing the level below bounds the clean bits needed by one
+    layer's posterior. With one layer this is ``BBANS``.
+    """
+
+    prior: Codec
+    layers: Tuple[Tuple[Callable[[Any], Codec], Callable[[Any], Codec]], ...]
+
+    def push(self, stack: ans.ANSStack, s: Any) -> ans.ANSStack:
+        ctx = s
+        for posterior_fn, likelihood_fn in self.layers:
+            stack, z = posterior_fn(ctx).pop(stack)
+            stack = likelihood_fn(z).push(stack, ctx)
+            ctx = z
+        return self.prior.push(stack, ctx)
+
+    def pop(self, stack: ans.ANSStack) -> Tuple[ans.ANSStack, Any]:
+        stack, z = self.prior.pop(stack)
+        for posterior_fn, likelihood_fn in reversed(self.layers):
+            stack, ctx = likelihood_fn(z).pop(stack)
+            stack = posterior_fn(ctx).push(stack, z)
+            z = ctx
+        return stack, z

@@ -28,14 +28,19 @@ multi-symbol leg on one dispatched call):
         pop_many_dyn(Bernoulli pixels | y)  -> s
         grid_starts + push_many(gaussian posterior over y | s)
 
-``Chained`` over it becomes ``_FusedChained``. Any other ``BBANS`` (the
-float VAE) keeps its networks eager and lowers the children they return
-at each call; ``Chained`` over it stays a Python loop. ``Shaped`` and
-``Serial`` lower their children; a combinator defined elsewhere
-registers its own structural lowering (``register_lowering``:
-``stream.BlockChain`` lowers its inner codec); single-symbol leaves stay
-as they are. Unlike the reference's lowering of 1-lane stacks (ROADMAP
-H2), nothing here depends on the lane count.
+``BitSwap`` whose layers are all ``FixedPointFn`` pairs (Gaussian
+posteriors) over the same prior becomes ``_FusedBitSwap``, the same legs
+per layer in Bit-Swap's interleaved order (the fixed-point HVAE).
+``Chained`` over either becomes ``_FusedChained``. Any other ``BBANS`` or
+``BitSwap`` (the float VAE and HVAE) keeps its networks eager and lowers
+the children they return at each call; ``Chained`` over it stays a Python
+loop. A ``Repeat`` of the HVAE's ``KernelDiscretizedGaussian`` lowers as
+a Gaussian ``_GridRepeat`` (families match by ``isinstance``), as in the
+reference. ``Shaped``, ``Serial`` and ``TreeCodec`` lower their children;
+a combinator defined elsewhere registers its own structural lowering
+(``register_lowering``: ``stream.BlockChain`` lowers its inner codec);
+single-symbol leaves stay as they are. Unlike the reference's lowering of
+1-lane stacks (ROADMAP H2), nothing here depends on the lane count.
 
 A codec type the compiler does not know raises ``NotImplementedError``.
 """
@@ -103,7 +108,10 @@ def _fp_pop(stack: ans.ANSStack, fx: Q.FixedPointFn,
         tables = torch.stack([torch.zeros_like(f1), total - f1,
                               torch.full_like(f1, total)], dim=-1)
         stack, symT = ops.pop_many_dyn(stack, tables, fx.precision)
-    return stack, symT.T
+    sym = symT.T
+    if fx.shape:
+        sym = sym.reshape((sym.shape[0],) + tuple(fx.shape))
+    return stack, sym
 
 
 @dataclasses.dataclass(frozen=True)
@@ -181,11 +189,47 @@ class _FusedBBANS(Codec):
         return stack, s
 
 
-class _FusedChained(Codec):
-    """``Chained`` over a ``_FusedBBANS``: the fused schedule per
-    datapoint, in chain order."""
+class _FusedBitSwap(Codec):
+    """``BitSwap`` with FixedPointFn layers, on the fused kernels: per
+    layer, bottom-up, pop_many_grid(gaussian posterior | context) then the
+    context's push under the layer's likelihood; then the uniform prior
+    over the top latent. Pop runs it backwards."""
 
-    def __init__(self, inner: _FusedBBANS, n: int):
+    def __init__(self, prior_bits: int, prior_precision: int, n_lat: int,
+                 layers: Tuple[Tuple[Q.FixedPointFn, Q.FixedPointFn], ...]):
+        self.prior_bits, self.prior_precision = prior_bits, prior_precision
+        self.n_lat, self.layers = n_lat, layers
+
+    def push(self, stack: ans.ANSStack, s: torch.Tensor) -> ans.ANSStack:
+        ctx = s
+        for post, lik in self.layers:
+            mu, sigma = post.params(ctx)
+            stack, zT = ops.pop_many_grid(stack, "gaussian", mu.T, sigma.T,
+                                          post.n, post.bits, post.precision)
+            stack = _fp_push(stack, lik, zT.T, ctx)
+            ctx = zT.T
+        return _push_grid(stack, "uniform", ctx.T, None, None,
+                          self.prior_bits, self.prior_precision)
+
+    def pop(self, stack: ans.ANSStack) -> Tuple[ans.ANSStack, torch.Tensor]:
+        stack, zT = ops.pop_many_grid(stack, "uniform", None, None,
+                                      self.n_lat, self.prior_bits,
+                                      self.prior_precision)
+        z = zT.T
+        for post, lik in reversed(self.layers):
+            stack, ctx = _fp_pop(stack, lik, z)
+            mu, sigma = post.params(ctx)
+            stack = _push_grid(stack, "gaussian", z.T, mu.T, sigma.T,
+                               post.bits, post.precision)
+            z = ctx
+        return stack, z
+
+
+class _FusedChained(Codec):
+    """``Chained`` over a ``_FusedBBANS`` or ``_FusedBitSwap``: the fused
+    schedule per datapoint, in chain order."""
+
+    def __init__(self, inner: Codec, n: int):
         self.inner, self.n = inner, n
 
     def push(self, stack: ans.ANSStack, data: torch.Tensor) -> ans.ANSStack:
@@ -224,6 +268,19 @@ def _lower_fused_bbans(codec: C.BBANS) -> Optional[_FusedBBANS]:
     if spec is None:
         return None
     return _FusedBBANS(spec[0], spec[1], post, lik)
+
+
+def _lower_fused_bitswap(codec: C.BitSwap) -> Optional[_FusedBitSwap]:
+    layers = codec.layers
+    if not layers or not all(
+            isinstance(p, Q.FixedPointFn) and isinstance(lk, Q.FixedPointFn)
+            and p.family == "gaussian" for p, lk in layers):
+        return None
+    n_lat = layers[-1][0].n
+    spec = _uniform_prior(codec.prior, n_lat)
+    if spec is None:
+        return None
+    return _FusedBitSwap(spec[0], spec[1], n_lat, tuple(layers))
 
 
 #: leaf family -> (tensor parameter fields, static fields); isinstance
@@ -413,9 +470,12 @@ def _lower(codec: Codec) -> Codec:
         return C.Shaped(_lower(codec.inner), codec.shape)
     if isinstance(codec, C.Serial):
         return C.Serial([_lower(c) for c in codec.codecs])
+    if isinstance(codec, C.TreeCodec):
+        leaves = iter([_lower(c) for c in C.tree_leaves(codec.tree)])
+        return C.TreeCodec(C.tree_unflatten(codec.tree, leaves))
     if isinstance(codec, C.Chained):
         inner = _lower(codec.inner)
-        if isinstance(inner, _FusedBBANS):
+        if isinstance(inner, (_FusedBBANS, _FusedBitSwap)):
             return _FusedChained(inner, codec.n)
         # Not fused: the chain stays a loop over datapoints, each lowering
         # its networks' leaves at call time.
@@ -428,10 +488,19 @@ def _lower(codec: Codec) -> Codec:
         return C.BBANS(prior=_lower(codec.prior),
                        likelihood=lambda y: _lower(lik(y)),
                        posterior=lambda s: _lower(post(s)))
+    if isinstance(codec, C.BitSwap):
+        fused = _lower_fused_bitswap(codec)
+        if fused is not None:
+            return fused
+        layers = tuple((lambda ctx, _p=p: _lower(_p(ctx)),
+                        lambda z, _l=lk: _lower(_l(z)))
+                       for p, lk in codec.layers)
+        return C.BitSwap(prior=_lower(codec.prior), layers=layers)
     raise NotImplementedError(
-        f"codecs.compile: lowering {type(codec).__name__} is not ported "
-        "yet; the compiler lowers Repeat, Shaped, Serial, Chained, BBANS "
-        "and the leaves (TreeCodec and BitSwap: ROADMAP queue 1, item 4)")
+        f"codecs.compile: cannot lower {type(codec).__name__}; the "
+        "compiler lowers Repeat, Shaped, Serial, TreeCodec, Chained, "
+        "BBANS, BitSwap, the leaves, and the combinators registered with "
+        "register_lowering")
 
 
 class CompiledCodec(Codec):

@@ -10,6 +10,15 @@ power-of-two multiply (both exact).
 Tables are built with numpy float64 exactly as the reference builds them
 (``sigma_table``, ``freq1_table``; ``centre_q_table`` from the committed
 centre table) and cached per device.
+
+PyTorch has no integer matmul or convolution on CUDA, so ``dense_q``,
+``conv_q`` and ``deconv_q`` multiply in float64 (an im2col copy and a
+matmul for the convolutions), which is exact: every partial sum
+stays far inside float64's 2^53 integer range, so any summation order
+gives the same integer. cuDNN is not used for them: its float64
+algorithms may include an FFT, which is not exact. The convolutions
+reproduce XLA's ``SAME`` padding (``same_pad``, ``transpose_pad``), which
+torch's symmetric ``padding=`` cannot express.
 """
 
 from __future__ import annotations
@@ -20,6 +29,7 @@ from typing import Any, Callable, Dict, Tuple
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from repro_torch import device as dev
 from repro_torch.core import ans, discretize
@@ -126,15 +136,18 @@ def _np64(x: Any) -> np.ndarray:
 
 def quantize_params(params: Any, q: QuantConfig,
                     device: dev.DeviceLike = None) -> Any:
-    """Quantize a tree of ``{"w", "b"}`` layer dicts onto ``device``."""
+    """Quantize a tree (dicts, lists, tuples) of ``{"w", "b"}`` dense or
+    conv layer dicts onto ``device``."""
     device = dev.resolve(device)
     if isinstance(params, dict) and set(params) == {"w", "b"}:
         return {"w": quantize_weight(params["w"], q, device),
                 "b": quantize_bias(params["b"], q, device)}
     if isinstance(params, dict):
         return {k: quantize_params(v, q, device) for k, v in params.items()}
+    if isinstance(params, (list, tuple)):
+        return type(params)(quantize_params(v, q, device) for v in params)
     raise TypeError(
-        f"quantize_params: expected a tree of dense layer dicts, got "
+        f"quantize_params: expected a tree of dense/conv layer dicts, got "
         f"{type(params).__name__}")
 
 
@@ -161,6 +174,69 @@ def dense_q(pq: Dict[str, torch.Tensor], x_q: torch.Tensor,
     acc = (x_q.to(torch.float64) @ pq["w"].to(torch.float64)) \
         .to(torch.int64)
     return requantize(acc + pq["b"], q)
+
+
+def same_pad(x: torch.Tensor, kh: int, kw: int, stride: int) -> torch.Tensor:
+    """NCHW ``x`` padded as XLA pads a ``SAME`` convolution: the output is
+    ceil(size / stride), the odd padding row or column at the bottom or
+    right (a stride-2 3x3 conv over an even size pads 0 above, 1 below)."""
+    pads = []
+    for size, k in ((x.shape[3], kw), (x.shape[2], kh)):
+        out = -(-size // stride)
+        total = max((out - 1) * stride + k - size, 0)
+        pads += [total // 2, total - total // 2]
+    return F.pad(x, pads)
+
+
+def transpose_pad(x: torch.Tensor, kh: int, kw: int,
+                  stride: int) -> torch.Tensor:
+    """NCHW ``x`` as ``jax.lax.conv_transpose(..., padding="SAME")``
+    convolves it: zero-dilated by ``stride``, then padded (k + s - 2 split
+    ``ceil`` before, rest after; k - 1 before when s > k - 1). A stride-1
+    convolution of the result with the *unflipped* kernel is the
+    transpose convolution (a 3x3 kernel at stride 2 pads (2, 1))."""
+    n, c, h, w = x.shape
+    z = x.new_zeros((n, c, (h - 1) * stride + 1, (w - 1) * stride + 1))
+    z[:, :, ::stride, ::stride] = x
+    pads = []
+    for k in (kw, kh):
+        total = k + stride - 2
+        lo = k - 1 if stride > k - 1 else -(-total // 2)
+        pads += [lo, total - lo]
+    return F.pad(z, pads)
+
+
+def _conv_exact(x: torch.Tensor, w: torch.Tensor, stride: int) -> torch.Tensor:
+    """Integer conv of padded NCHW ``x`` with HWIO ``w`` (no padding) as a
+    float64 im2col matmul, exact: -> int64 NHWC. The columns are one copy
+    of ``Tensor.unfold``'s windows view (``F.unfold`` on CUDA launches one
+    im2col kernel per image: 1024 per convolution at 1024 lanes)."""
+    kh, kw, cin, cout = w.shape
+    n = x.shape[0]
+    win = x.to(torch.float64).unfold(2, kh, stride).unfold(3, kw, stride)
+    ho, wo = win.shape[2], win.shape[3]
+    cols = win.permute(0, 2, 3, 1, 4, 5).reshape(n * ho * wo, cin * kh * kw)
+    wm = w.permute(2, 0, 1, 3).reshape(cin * kh * kw, cout)
+    return (cols @ wm.to(torch.float64)).reshape(n, ho, wo, cout) \
+        .to(torch.int64)
+
+
+def conv_q(pq: Dict[str, torch.Tensor], x_q: torch.Tensor, q: QuantConfig,
+           stride: int = 1) -> torch.Tensor:
+    """Integer NHWC convolution, HWIO weights, XLA ``SAME`` padding (the
+    quantized ``hvae._conv``): Q(act) -> Q(act)."""
+    kh, kw = pq["w"].shape[:2]
+    x = same_pad(x_q.permute(0, 3, 1, 2), kh, kw, stride)
+    return requantize(_conv_exact(x, pq["w"], stride) + pq["b"], q)
+
+
+def deconv_q(pq: Dict[str, torch.Tensor], x_q: torch.Tensor, q: QuantConfig,
+             stride: int = 2) -> torch.Tensor:
+    """Integer NHWC transpose convolution, ``SAME`` (the quantized
+    ``hvae._deconv``): an exact x``stride`` upsample."""
+    kh, kw = pq["w"].shape[:2]
+    x = transpose_pad(x_q.permute(0, 3, 1, 2), kh, kw, stride)
+    return requantize(_conv_exact(x, pq["w"], 1) + pq["b"], q)
 
 
 def relu_q(x_q: torch.Tensor) -> torch.Tensor:
@@ -244,7 +320,8 @@ class FixedPointFn:
     ``LutBernoulli``). Calling the instance builds the interpreted twin, a
     ``Repeat`` of leaves; ``codecs.compile`` recognizes the marker and
     fuses the model forward with the kernels instead. Both write the same
-    bytes.
+    bytes. ``shape`` presents the flat [lanes, n] symbols as [lanes,
+    *shape] (images); empty for flat latent grids.
     """
 
     fn: Callable[[Any], Any]
@@ -252,6 +329,7 @@ class FixedPointFn:
     n: int
     bits: int = 0
     precision: int = ans.DEFAULT_PRECISION
+    shape: Tuple[int, ...] = ()
 
     def __post_init__(self):
         if self.family not in FAMILIES:
@@ -268,10 +346,12 @@ class FixedPointFn:
     def __call__(self, ctx: Any) -> Codec:
         if self.family == "gaussian":
             mu, sigma = self.fn(ctx)
-            return C.Repeat(
+            inner: Codec = C.Repeat(
                 lambda d: L.DiscretizedGaussian(
                     mu[:, d], sigma[:, d], self.bits, self.precision),
                 self.n)
-        f1 = self.fn(ctx)
-        return C.Repeat(lambda d: LutBernoulli(f1[:, d], self.precision),
-                        self.n)
+        else:
+            f1 = self.fn(ctx)
+            inner = C.Repeat(
+                lambda d: LutBernoulli(f1[:, d], self.precision), self.n)
+        return C.Shaped(inner, self.shape) if self.shape else inner

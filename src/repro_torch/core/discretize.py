@@ -116,11 +116,43 @@ def posterior_starts_fn(mu: torch.Tensor, sigma: torch.Tensor,
 def push_posterior(stack: ans.ANSStack, idx: torch.Tensor, mu: torch.Tensor,
                    sigma: torch.Tensor, lat_bits: int,
                    precision: int = ans.DEFAULT_PRECISION) -> ans.ANSStack:
-    """Encode bucket indices (one per lane) under Q(y|s)."""
-    f = posterior_starts_fn(mu, sigma, lat_bits, precision)
-    idx = idx.to(torch.int64)
-    start = f(idx)
-    return ans.push(stack, start, f(idx + 1) - start, precision)
+    """Encode bucket indices (one per lane) under Q(y|s). ``F(idx)`` and
+    ``F(idx+1)`` come from the dispatched ``grid_starts`` op: one launch
+    on a card, where the op-for-op ``ndtr`` would be some 1200, the plain
+    version (the same integers) on the CPU."""
+    from repro_torch.kernels.ans import ops   # ops imports this module
+    idx, mu, sigma = torch.broadcast_tensors(idx, mu, sigma)
+    start, freq = ops.grid_starts(idx[None], mu[None], sigma[None], lat_bits,
+                                  precision)
+    return ans.push(stack, start[0], freq[0], precision)
+
+
+#: torch's CPU parallel grain (``at::internal::GRAIN_SIZE``): elementwise
+#: ops on fewer elements run on one thread
+_CPU_GRAIN = 32768
+
+
+def tabled_starts(starts: Callable[..., Callable], mu: torch.Tensor,
+                  sigma: torch.Tensor, lat_bits: int, precision: int,
+                  edges: Optional[torch.Tensor] = None
+                  ) -> Callable[[torch.Tensor], torch.Tensor]:
+    """``F`` of lanes ``mu``, ``sigma`` [lanes] for a bisection, from the
+    starts builder ``starts`` (``posterior_starts_fn`` or the logistic
+    one). Where the whole table F(0..K) of every lane is small - under the
+    CPU's parallel grain, or on a card - it is built in one elementwise
+    pass (``lat_bits + 3`` passes over the lanes cost more in launches)
+    and ``F`` reads it; elsewhere ``F`` is evaluated where the bisection
+    asks (a table would cost more in arithmetic, and, above the grain,
+    start threads that several test processes on one machine fight over).
+    Either way, the same integers."""
+    k = 1 << lat_bits
+    if mu.dim() != 1 or (mu.device.type != "cuda"
+                         and mu.shape[0] * (k + 1) > _CPU_GRAIN):
+        return starts(mu, sigma, lat_bits, precision, edges)
+    i = torch.arange(k + 1, device=mu.device)[None, :]
+    table = starts(mu[:, None], sigma[:, None], lat_bits, precision,
+                   edges)(i)
+    return lambda idx: table.gather(1, idx.long()[:, None])[:, 0]
 
 
 def bisect(f: Callable[[torch.Tensor], torch.Tensor], slot: torch.Tensor,
@@ -141,7 +173,7 @@ def pop_posterior(stack: ans.ANSStack, mu: torch.Tensor, sigma: torch.Tensor,
                   ) -> Tuple[ans.ANSStack, torch.Tensor]:
     """Decode bucket indices under Q(y|s): a sample from the discretized
     posterior drawn with stack bits."""
-    f = posterior_starts_fn(mu, sigma, lat_bits, precision)
+    f = tabled_starts(posterior_starts_fn, mu, sigma, lat_bits, precision)
     idx = bisect(f, ans.peek(stack, precision), lat_bits)
     start = f(idx)
     stack = ans.pop_update(stack, start, f(idx + 1) - start, precision)

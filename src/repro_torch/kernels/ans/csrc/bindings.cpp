@@ -1,4 +1,5 @@
-// PyTorch bindings of the six ANS kernels. Each entry point takes typed
+// PyTorch bindings of the six ANS kernels and the posterior bucketize
+// (../../bucketize/csrc/bucketize.cu). Each entry point takes typed
 // tensors, checks device, dtype, shape and contiguity, allocates its
 // outputs, and launches on PyTorch's current stream of the tensors' card
 // (a device guard makes that card current). A failed check raises
@@ -38,6 +39,11 @@ cudaError_t launch_grid_starts(const int32_t* idx, const float* mu,
                                int32_t* start, int32_t* freq, int n,
                                int kind, int lat_bits, int precision,
                                cudaStream_t stream);
+cudaError_t launch_bucketize(const int32_t* slot, const float* mu,
+                             const float* sigma, const float* edges,
+                             int32_t* idx, int32_t* start, int32_t* freq,
+                             int lanes, int lat_bits, int precision,
+                             cudaStream_t stream);
 
 namespace {
 
@@ -248,6 +254,34 @@ std::vector<Tensor> grid_starts(const Tensor& idx, const Tensor& mu,
   return {start, freq};
 }
 
+// slot int32[L]; mu, sigma float32[L]; edges float32[K+1]
+// -> (idx, start, freq) int32[L].
+std::vector<Tensor> posterior_bucketize(const Tensor& slot, const Tensor& mu,
+                                        const Tensor& sigma,
+                                        const Tensor& edges, int64_t lat_bits,
+                                        int64_t precision) {
+  const torch::Device dev = card(slot);
+  dims(slot, "slot", 1);
+  const int64_t lanes = slot.size(0);
+  need(slot, "slot", torch::kInt32, {lanes}, dev);
+  need(mu, "mu", torch::kFloat32, {lanes}, dev);
+  need(sigma, "sigma", torch::kFloat32, {lanes}, dev);
+  need(edges, "edges", torch::kFloat32, {(int64_t{1} << lat_bits) + 1},
+       dev);
+  const c10::cuda::CUDAGuard guard(dev);
+  Tensor idx = torch::empty_like(slot);
+  Tensor start = torch::empty_like(slot);
+  Tensor freq = torch::empty_like(slot);
+  launched(launch_bucketize(
+               slot.data_ptr<int32_t>(), mu.data_ptr<float>(),
+               sigma.data_ptr<float>(), edges.data_ptr<float>(),
+               idx.data_ptr<int32_t>(), start.data_ptr<int32_t>(),
+               freq.data_ptr<int32_t>(), lanes, lat_bits, precision,
+               at::cuda::getCurrentCUDAStream()),
+           "bucketize");
+  return {idx, start, freq};
+}
+
 PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
   m.def("push_emit", &push_emit);
   m.def("pop_table_emit", &pop_table_emit);
@@ -256,4 +290,5 @@ PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
   m.def("pop_grid_cdf", &pop_grid_cdf);
   m.def("pop_grid_uniform", &pop_grid_uniform);
   m.def("grid_starts", &grid_starts);
+  m.def("bucketize", &posterior_bucketize);
 }

@@ -3,7 +3,8 @@
 // (pop_grid_emit), kinds "gaussian", "logistic" and "uniform".
 //
 // One thread per lane, the step loop inside the thread. Gaussian and
-// logistic: per step a (lat_bits+1)-step bisection for the largest i with
+// logistic: per step a (lat_bits+1)-step bisection (../../common/
+// bisect.cuh, shared with bucketize.cu) for the largest i with
 // F(i) <= slot, where F is the fixed-point CDF (ndtr of
 // ../../common/ndtr.cuh, or XLA's sigmoid of ../../common/xla_math.cuh for
 // the logistic), then F(idx) and F(idx+1) for the state update; that is
@@ -15,6 +16,7 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "bisect.cuh"
 #include "ndtr.cuh"
 #include "xla_math.cuh"
 
@@ -59,16 +61,12 @@ __global__ void pop_grid_kernel(const int64_t* __restrict__ head,
     int idx;
     if (kind != kUniform) {
       float m = mu[o], inv = __frcp_rn(sigma[o]);
-      int lo = 0, hi = k;
-      for (int b = 0; b <= lat_bits; ++b) {
-        int mid = (lo + hi + 1) >> 1;
-        bool up = cdf_start(kind, s_edges, mid, m, inv, k, scale) <= slot;
-        lo = up ? mid : lo;
-        hi = up ? hi : mid;
-      }
-      idx = lo;
-      start = cdf_start(kind, s_edges, idx, m, inv, k, scale);
-      freq = cdf_start(kind, s_edges, idx + 1, m, inv, k, scale) - start;
+      auto f = [&](int i) {
+        return cdf_start(kind, s_edges, i, m, inv, k, scale);
+      };
+      idx = grid_bisect(f, slot, lat_bits);
+      start = f(idx);
+      freq = f(idx + 1) - start;
     } else {
       idx = (int)(slot >> shift);
       start = (uint32_t)idx << shift;

@@ -1,7 +1,9 @@
-"""The hand-written CUDA kernels of the ANS coder, and their loader.
+"""The hand-written CUDA kernels of the ANS coder and of the posterior
+bucketize, and their loader.
 
-Six kernels, one source each under ``csrc/``, all one thread per lane
-with the step loop inside the thread (the Pallas ``fori_loop``):
+Seven kernels, one source each (``csrc/`` here, ``../bucketize/csrc/``),
+all one thread per lane with the step loop inside the thread (the Pallas
+``fori_loop``):
 
   * ``push_emit``         - ``repro/kernels/ans/kernel.py:35 _push_kernel``;
   * ``pop_slots``         - ``kernel.py:92 _peek_kernel``;
@@ -14,9 +16,12 @@ with the step loop inside the thread (the Pallas ``fori_loop``):
                             XLA code in the reference
                             (``codecs/compile.py:97-118``, ``:357``); a
                             kernel here so that encoder and decoder share
-                            ``common/ndtr.cuh`` and ``common/xla_math.cuh``.
+                            ``common/ndtr.cuh`` and ``common/xla_math.cuh``;
+  * ``bucketize``         - ``repro/kernels/bucketize/kernel.py:37
+                            _bucketize_kernel`` (one bisection and no pop;
+                            its wrapper is ``kernels/bucketize/kernel.py``).
 
-Build: ``torch.utils.cpp_extension.load`` compiles the six sources and
+Build: ``torch.utils.cpp_extension.load`` compiles the seven sources and
 ``csrc/bindings.cpp`` (typed ``torch::Tensor`` entry points that check
 their tensors, hold a device guard, allocate the outputs and launch on
 PyTorch's current stream) into one extension on first use, into
@@ -36,21 +41,22 @@ from typing import Dict
 import torch
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
-_CSRC = os.path.join(_HERE, "csrc")
-_COMMON = os.path.join(os.path.dirname(_HERE), "common")
+_KERNELS = os.path.dirname(_HERE)
+_COMMON = os.path.join(_KERNELS, "common")
 
 #: ``build/kernels`` of the checkout that holds ``src/repro_torch``
 BUILD_DIR = os.path.normpath(
     os.path.join(_HERE, "..", "..", "..", "..", "build", "kernels"))
 
-#: kernel name -> source file in csrc/
+#: kernel name -> source file, relative to ``repro_torch/kernels``
 SOURCES = {
-    "push_emit": "push.cu",
-    "pop_slots": "peek.cu",
-    "pop_table_emit": "pop_table.cu",
-    "pop_dyntable_emit": "pop_dyntable.cu",
-    "pop_grid_emit": "pop_grid.cu",
-    "grid_starts": "grid_starts.cu",
+    "push_emit": "ans/csrc/push.cu",
+    "pop_slots": "ans/csrc/peek.cu",
+    "pop_table_emit": "ans/csrc/pop_table.cu",
+    "pop_dyntable_emit": "ans/csrc/pop_dyntable.cu",
+    "pop_grid_emit": "ans/csrc/pop_grid.cu",
+    "grid_starts": "ans/csrc/grid_starts.cu",
+    "bucketize": "bucketize/csrc/bucketize.cu",
 }
 
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "--fmad=false",
@@ -62,7 +68,7 @@ LAUNCHES: Dict[str, int] = {
     "push_emit": 0, "pop_slots": 0, "pop_table_emit": 0,
     "pop_dyntable_emit": 0, "pop_grid_emit/gaussian": 0,
     "pop_grid_emit/logistic": 0, "pop_grid_emit/uniform": 0,
-    "grid_starts/gaussian": 0, "grid_starts/logistic": 0}
+    "grid_starts/gaussian": 0, "grid_starts/logistic": 0, "bucketize": 0}
 
 _EXT = None
 
@@ -82,16 +88,19 @@ def build():
         os.makedirs(BUILD_DIR, exist_ok=True)
         _EXT = cpp_extension.load(
             name="repro_torch_ans_kernels",
-            sources=[os.path.join(_CSRC, f) for f in
-                     ("bindings.cpp", *SOURCES.values())],
+            sources=[os.path.join(_KERNELS, f) for f in
+                     ("ans/csrc/bindings.cpp", *SOURCES.values())],
             extra_cflags=["-O2"], extra_cuda_cflags=NVCC_FLAGS,
             extra_include_paths=[_COMMON], build_directory=BUILD_DIR)
     return _EXT
 
 
-def _launch(counter: str, fn: str, head: torch.Tensor, *args):
+def launch(counter: str, fn: str, head: torch.Tensor, *args):
+    """Call extension function ``fn`` on ``head`` (its first tensor, which
+    sets the card and, when empty, means no launch) and ``args``; count
+    the launch under ``counter``."""
     if head.device.type != "cuda":
-        raise ValueError(f"kernels.ans: the kernels take CUDA tensors, got "
+        raise ValueError(f"kernels: the kernels take CUDA tensors, got "
                          f"{head.device}")
     out = getattr(build(), fn)(head, *args)
     if head.numel():
@@ -103,29 +112,29 @@ def push_emit(head: torch.Tensor, starts: torch.Tensor, freqs: torch.Tensor,
               precision: int):
     """head int64[L]; starts/freqs int32[S, L] -> (head int64[L], chunks
     int32[S, L], need int32[S, L])."""
-    return _launch("push_emit", "push_emit", head, starts, freqs,
-                   precision)
+    return launch("push_emit", "push_emit", head, starts, freqs,
+                  precision)
 
 
 def pop_slots(head: torch.Tensor, precision: int) -> torch.Tensor:
     """head int64[L] -> slots int32[L] = head & (2^precision - 1)."""
-    return _launch("pop_slots", "pop_slots", head, precision)
+    return launch("pop_slots", "pop_slots", head, precision)
 
 
 def pop_table_emit(head: torch.Tensor, table: torch.Tensor,
                    feed: torch.Tensor, precision: int):
     """head int64[L]; table int32[L, A+1]; feed int32[S, L] -> (head,
     syms int32[S, L], reads int32[L])."""
-    return _launch("pop_table_emit", "pop_table_emit", head, table, feed,
-                   precision)
+    return launch("pop_table_emit", "pop_table_emit", head, table, feed,
+                  precision)
 
 
 def pop_dyntable_emit(head: torch.Tensor, tables: torch.Tensor,
                       feed: torch.Tensor, precision: int):
     """head int64[L]; tables int32[S, L, A+1]; feed int32[S, L] -> (head,
     syms int32[S, L], reads int32[L])."""
-    return _launch("pop_dyntable_emit", "pop_dyntable_emit", head, tables,
-                   feed, precision)
+    return launch("pop_dyntable_emit", "pop_dyntable_emit", head, tables,
+                  feed, precision)
 
 
 def pop_grid_emit(head: torch.Tensor, mu: torch.Tensor, sigma: torch.Tensor,
@@ -138,10 +147,10 @@ def pop_grid_emit(head: torch.Tensor, mu: torch.Tensor, sigma: torch.Tensor,
 
     check_kind(kind)
     if kind == "uniform":
-        return _launch("pop_grid_emit/uniform", "pop_grid_uniform", head,
-                       feed, lat_bits, precision)
-    return _launch(f"pop_grid_emit/{kind}", "pop_grid_cdf", head, mu, sigma,
-                   feed, edges, kind, lat_bits, precision)
+        return launch("pop_grid_emit/uniform", "pop_grid_uniform", head,
+                      feed, lat_bits, precision)
+    return launch(f"pop_grid_emit/{kind}", "pop_grid_cdf", head, mu, sigma,
+                  feed, edges, kind, lat_bits, precision)
 
 
 def grid_starts(idx: torch.Tensor, mu: torch.Tensor, sigma: torch.Tensor,
@@ -150,5 +159,5 @@ def grid_starts(idx: torch.Tensor, mu: torch.Tensor, sigma: torch.Tensor,
     """idx int32[S, L]; mu/sigma float32[S, L]; edges float32[K+1]; kind
     ``gaussian`` or ``logistic`` -> (start int32[S, L], freq
     int32[S, L])."""
-    return _launch(f"grid_starts/{kind}", "grid_starts", idx, mu, sigma,
-                   edges, kind, lat_bits, precision)
+    return launch(f"grid_starts/{kind}", "grid_starts", idx, mu, sigma,
+                  edges, kind, lat_bits, precision)

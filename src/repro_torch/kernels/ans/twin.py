@@ -23,7 +23,8 @@ from typing import Callable, Tuple
 import torch
 
 from repro_torch.core import ans
-from repro_torch.core.discretize import bisect, posterior_starts_fn
+from repro_torch.core.discretize import (bisect, posterior_starts_fn,
+                                         tabled_starts)
 from repro_torch.codecs.leaves import logistic_starts_fn
 
 GRID_KINDS = ("gaussian", "logistic", "uniform")
@@ -138,7 +139,8 @@ def pop_grid_emit(head: torch.Tensor, mu: torch.Tensor, sigma: torch.Tensor,
             start = idx << shift
             freq = torch.full_like(start, 1 << shift)
         else:
-            f = _cdf_fn(kind, mu[t], sigma[t], edges, lat_bits, precision)
+            f = tabled_starts(cdf_starts_fn(kind), mu[t], sigma[t],
+                              lat_bits, precision, edges)
             idx = bisect(f, slot, lat_bits)
             start = f(idx)
             freq = f(idx + 1) - start
@@ -151,32 +153,6 @@ def pop_grid_emit(head: torch.Tensor, mu: torch.Tensor, sigma: torch.Tensor,
 def cdf_starts_fn(kind: str) -> Callable:
     """The pointwise starts builder of a CDF grid kind."""
     return logistic_starts_fn if kind == "logistic" else posterior_starts_fn
-
-
-#: torch's CPU parallel grain (``at::internal::GRAIN_SIZE``): elementwise
-#: ops on fewer elements run on one thread
-_CPU_GRAIN = 32768
-
-
-def _cdf_fn(kind: str, mu: torch.Tensor, sigma: torch.Tensor,
-            edges: torch.Tensor, lat_bits: int,
-            precision: int) -> Callable[[torch.Tensor], torch.Tensor]:
-    """``F`` of one step's lanes for the bisection. Where the whole table
-    ``F(0..K)`` of every lane is small - under the CPU's parallel grain,
-    or on a card - it is built in one elementwise pass (``lat_bits + 3``
-    passes over the lanes cost more in launches) and ``F`` reads it;
-    elsewhere ``F`` is evaluated where the bisection asks (a table would
-    cost more in arithmetic, and, above the grain, start threads that
-    several test processes on one machine fight over). Either way, the
-    same integers."""
-    k = 1 << lat_bits
-    starts = cdf_starts_fn(kind)
-    if mu.device.type != "cuda" and mu.shape[0] * (k + 1) > _CPU_GRAIN:
-        return starts(mu, sigma, lat_bits, precision, edges)
-    i = torch.arange(k + 1, device=mu.device)[None, :]
-    table = starts(mu[:, None], sigma[:, None], lat_bits, precision,
-                   edges)(i)
-    return lambda idx: table.gather(1, idx[:, None])[:, 0]
 
 
 def grid_starts(idx: torch.Tensor, mu: torch.Tensor, sigma: torch.Tensor,

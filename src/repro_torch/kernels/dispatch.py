@@ -1,12 +1,13 @@
 """Backend choice for the coder kernels: cuda / torch / ref.
 
-Every op in ``kernels/ans/ops.py`` has three bit-identical versions:
+Every op in ``kernels/ans/ops.py``, and ``"bucketize"``
+(``kernels/bucketize/ops.py``), has three bit-identical versions:
 
-  * ``"cuda"``  - the hand-written CUDA kernel (``kernels/ans/kernel.py``);
+  * ``"cuda"``  - the hand-written CUDA kernel (``kernels/*/kernel.py``);
                   runs on CUDA tensors only;
-  * ``"torch"`` - the plain PyTorch version (``kernels/ans/twin.py``), the
+  * ``"torch"`` - the plain PyTorch version (``kernels/*/twin.py``), the
                   CPU path;
-  * ``"ref"``   - the per-step oracle (``kernels/ans/ref.py``).
+  * ``"ref"``   - the per-step oracle (``kernels/*/ref.py``).
 
 ``resolve(op, device, backend)`` picks one with the reference's
 precedence (``repro/kernels/dispatch.py:129``): an explicit ``backend=``,

@@ -1,13 +1,14 @@
 """Dataset compression launcher - the Table-1 reproduction CLI (port of
 ``repro.launch.compress``).
 
-``python -m repro_torch.launch.compress`` trains the paper's VAE on
-synthetic binarized MNIST with AdamW, then streams the test corpus
-through the lane-sharded BB-ANS pipeline (``repro_torch.shard_codec``),
-compiled onto the card's kernels, and ends with the paper's Table-1
-comparison - BB-ANS bits/dim against gzip, bz2, lzma and per-image PNG -
-and a lossless full decode. It exits with an error unless the decode is
-lossless and BB-ANS beats gzip and bz2.
+``python -m repro_torch.launch.compress`` trains the paper's VAE (or,
+with ``--arch hvae-small2``, the 2-level convolutional HVAE under
+Bit-Swap) on synthetic binarized MNIST with AdamW, then streams the test
+corpus through the lane-sharded BB-ANS pipeline
+(``repro_torch.shard_codec``), compiled onto the card's kernels, and ends
+with the paper's Table-1 comparison - BB-ANS bits/dim against gzip, bz2,
+lzma and per-image PNG - and a lossless full decode. It exits with an
+error unless the decode is lossless and BB-ANS beats gzip and bz2.
 
     PYTHONPATH=src python -m repro_torch.launch.compress \\
         --arch vae-bernoulli --images 512 --train-steps 400
@@ -15,13 +16,14 @@ lossless and BB-ANS beats gzip and bz2.
 It runs on the card (``--shards`` defaults to the number of visible
 cards; every shard is placed on the current one). The functions take
 ``device=`` (``None`` means the card); the tests call them with
-``device="cpu"``. ``--arch vae-beta_binomial`` and ``hvae-small2`` are
-not ported yet and raise ``NotImplementedError``.
+``device="cpu"``. ``--arch vae-beta_binomial`` is not ported yet and
+raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import time
 from typing import Any, Callable, Dict, Optional, Sequence, Tuple
 
@@ -31,8 +33,11 @@ import torch
 from repro_torch import device as dev
 from repro_torch import shard_codec
 from repro_torch.codecs import Codec
+from repro_torch.configs import hvae_img
 from repro_torch.data import baselines as baseline_lib
+from repro_torch.data import images as img_data
 from repro_torch.data import synthetic_mnist
+from repro_torch.models import hvae as hvae_lib
 from repro_torch.models import vae as vae_lib
 from repro_torch.optim import adamw
 
@@ -44,12 +49,37 @@ def _check_arch(arch: str) -> None:
         raise NotImplementedError(
             "--arch vae-beta_binomial: the BetaBinomial likelihood is not "
             "ported yet (ROADMAP queue 1, item 3)")
-    if arch == "hvae-small2":
-        raise NotImplementedError(
-            "--arch hvae-small2: the HVAE and Bit-Swap are not ported yet "
-            "(ROADMAP queue 1, item 4)")
     if arch not in ARCHS:
         raise ValueError(f"unknown --arch {arch!r}; choose from {ARCHS}")
+
+
+def _fit(loss: Callable, params: Any, train: torch.Tensor, *, steps: int,
+         batch: int, lr: float, seed: int, device: torch.device,
+         scope: Callable = contextlib.nullcontext) -> Any:
+    """The reference's training loop: AdamW under ``cosine_lr(lr, 100,
+    steps)``, batches of ``batch`` rows of ``train`` drawn by numpy
+    ``default_rng(seed)``, ``loss(params, noise generator, batch)``; the
+    noise generator is seeded ``seed + 1``. Forward and backward run
+    inside ``scope()``."""
+    opt = adamw.AdamW(learning_rate=adamw.cosine_lr(lr, 100, steps))
+    state = opt.init(params)
+    noise = torch.Generator(device=device).manual_seed(seed + 1)
+    rng = np.random.default_rng(seed)
+    for _ in range(steps):
+        idx = dev.upload(rng.integers(0, len(train), batch), device)
+        live = adamw.tree_map(lambda t: t.detach().requires_grad_(True),
+                              params)
+        with scope():
+            grads = iter(torch.autograd.grad(loss(live, noise, train[idx]),
+                                             adamw.tree_leaves(live)))
+        grads = adamw.tree_map(lambda _: next(grads), live)
+        params, state = opt.update(grads, state, live)
+    return params
+
+
+def _on(params: Any, device: dev.DeviceLike) -> Any:
+    return params if device is None else adamw.tree_map(
+        lambda t: t.to(dev.resolve(device)), params)
 
 
 def train_dataset_model(arch: str, *, steps: int, seed: int = 0,
@@ -58,46 +88,54 @@ def train_dataset_model(arch: str, *, steps: int, seed: int = 0,
                         ) -> Tuple[Callable[..., Codec], bool, float]:
     """Train the model behind ``--arch``; returns ``(per-datapoint codec
     factory, binary?, test -ELBO in bits/dim)``. The factory builds the
-    codec on the weights' device, or on ``device=`` when given.
+    codec on the weights' device, or on ``device=`` when given; for the
+    HVAE, the Bit-Swap codec of 28 x 28 images.
 
     The reference's steps: the same synthetic digits, the batches drawn
-    by numpy ``default_rng(seed)``, AdamW under ``cosine_lr(lr, 100,
-    steps)``, the -ELBO averaged over four noise draws on 1024 test
-    images. The initial weights and the noise come from torch generators
-    seeded ``seed``, ``seed + 1`` and ``seed + 2``, so they are not the
-    reference's numbers.
+    by numpy ``default_rng(seed)``, AdamW under ``cosine_lr``, the -ELBO
+    averaged over four noise draws on the test images. The VAE trains on
+    ``n_train`` digits in batches of ``batch`` at ``lr`` and is scored on
+    1024; the HVAE (``hvae-small2``) on ``n_train // 2`` digits collated
+    by ``data.images`` in batches of 64 at 2e-3, scored on 256, as the
+    reference fixes them. The initial weights and the noise come from
+    torch generators seeded ``seed``, ``seed + 1`` and ``seed + 2``, so
+    they are not the reference's numbers.
     """
     _check_arch(arch)
     device = dev.resolve(device)
-    cfg = vae_lib.paper_config("bernoulli")
-    train_imgs, _ = synthetic_mnist.load("train", n_train, seed)
-    train_imgs = synthetic_mnist.binarize(train_imgs, seed)
-    test_imgs, _ = synthetic_mnist.load("test", 1024, seed)
-    test_imgs = synthetic_mnist.binarize(test_imgs, seed + 1)
-    params = vae_lib.init(cfg, torch.Generator().manual_seed(seed),
-                          device=device)
-    opt = adamw.AdamW(learning_rate=adamw.cosine_lr(lr, 100, steps))
-    state = opt.init(params)
-    train = dev.upload(train_imgs.astype(np.int32), device)
-    noise = torch.Generator(device=device).manual_seed(seed + 1)
-    rng = np.random.default_rng(seed)
-    for _ in range(steps):
-        idx = dev.upload(rng.integers(0, len(train_imgs), batch), device)
-        live = adamw.tree_map(lambda t: t.detach().requires_grad_(True),
-                              params)
-        loss = vae_lib.loss(live, cfg, noise, train[idx])
-        grads = iter(torch.autograd.grad(loss, adamw.tree_leaves(live)))
-        grads = adamw.tree_map(lambda _: next(grads), live)
-        params, state = opt.update(grads, state, live)
+    fit = dict(steps=steps, seed=seed, device=device)
+    if arch == "hvae-small2":
+        cfg = hvae_img.SMALL2
+        train_imgs = img_data.load("train", n_train // 2, seed, hw=(28, 28))
+        test_imgs = img_data.load("test", 256, seed + 1, hw=(28, 28))
+        params = hvae_lib.init(cfg, torch.Generator().manual_seed(seed),
+                               device=device)
+        params = _fit(lambda p, g, x: hvae_lib.loss(p, cfg, g, x), params,
+                      dev.upload(train_imgs.astype(np.int32), device),
+                      batch=64, lr=2e-3, scope=hvae_lib.conv_flags, **fit)
+        score = hvae_lib.elbo_bits_per_dim
+        make = lambda p: hvae_lib.make_bitswap_codec(p, cfg, (28, 28))
+    else:
+        cfg = vae_lib.paper_config("bernoulli")
+        train_imgs, _ = synthetic_mnist.load("train", n_train, seed)
+        train_imgs = synthetic_mnist.binarize(train_imgs, seed)
+        test_imgs, _ = synthetic_mnist.load("test", 1024, seed)
+        test_imgs = synthetic_mnist.binarize(test_imgs, seed + 1)
+        params = vae_lib.init(cfg, torch.Generator().manual_seed(seed),
+                              device=device)
+        params = _fit(lambda p, g, x: vae_lib.loss(p, cfg, g, x), params,
+                      dev.upload(train_imgs.astype(np.int32), device),
+                      batch=batch, lr=lr, **fit)
+        score = vae_lib.elbo_bits_per_dim
+        make = lambda p: vae_lib.make_bb_codec(p, cfg)
     test = dev.upload(test_imgs.astype(np.int32), device)
     gen = torch.Generator(device=device).manual_seed(seed + 2)
     with torch.no_grad():
-        elbo = float(np.mean([float(vae_lib.elbo_bits_per_dim(
-            params, cfg, gen, test)) for _ in range(4)]))
+        elbo = float(np.mean([float(score(params, cfg, gen, test))
+                              for _ in range(4)]))
+
     def make_codec(device: dev.DeviceLike = None) -> Codec:
-        on = params if device is None else adamw.tree_map(
-            lambda t: t.to(dev.resolve(device)), params)
-        return vae_lib.make_bb_codec(on, cfg)
+        return make(_on(params, device))
 
     return make_codec, True, elbo
 
@@ -106,11 +144,13 @@ def load_corpus(arch: str, n_images: int, lanes: int, seed: int = 123,
                 device: dev.DeviceLike = None
                 ) -> Tuple[np.ndarray, torch.Tensor, bool]:
     """The benchmark corpus: ``(images uint8 [n, 784], data int32
-    [n // lanes, lanes, 784] on ``device``, binary?)``."""
+    [n // lanes, lanes, 784] on ``device`` - [..., 28, 28] for the HVAE -,
+    binary?)``."""
     _check_arch(arch)
     imgs, _ = synthetic_mnist.load("test", n_images, seed)
     imgs = synthetic_mnist.binarize(imgs, seed)
-    data = dev.upload(imgs.reshape(-1, lanes, 784).astype(np.int32),
+    shape = (28, 28) if arch == "hvae-small2" else (784,)
+    data = dev.upload(imgs.reshape((-1, lanes) + shape).astype(np.int32),
                       dev.resolve(device))
     return imgs, data, True
 

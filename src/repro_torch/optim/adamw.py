@@ -1,6 +1,6 @@
 """AdamW with global-norm clipping (port of ``repro.optim.adamw``):
-plain functions over parameter trees of tensors (nested dicts), the
-reference's update step for step.
+plain functions over parameter trees of tensors (nested dicts and
+lists), the reference's update step for step.
 
     opt = AdamW(learning_rate=cosine_lr(1e-3, 100, steps))
     state = opt.init(params)
@@ -21,16 +21,22 @@ import torch
 
 
 def tree_map(fn: Callable, *trees: Any) -> Any:
-    """``fn`` over the tensors of nested dicts of the same layout."""
+    """``fn`` over the tensors of nested dicts and lists of the same
+    layout."""
     first = trees[0]
     if isinstance(first, dict):
         return {k: tree_map(fn, *(t[k] for t in trees)) for k in first}
+    if type(first) in (list, tuple):
+        return type(first)(tree_map(fn, *(t[i] for t in trees))
+                           for i in range(len(first)))
     return fn(*trees)
 
 
 def tree_leaves(tree: Any) -> list:
     if isinstance(tree, dict):
         return [leaf for k in tree for leaf in tree_leaves(tree[k])]
+    if type(tree) in (list, tuple):
+        return [leaf for v in tree for leaf in tree_leaves(v)]
     return [tree]
 
 

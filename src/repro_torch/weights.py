@@ -1,10 +1,13 @@
 """Parameters from the JAX reference, as the port's tensors.
 
-``from_jax_params`` takes the tree ``repro.models.vae.init`` returns,
-converted to numpy (``jax.tree_util.tree_map(np.asarray, params)``) or
-flattened as ``{"<layer>.<w|b>": array}`` (the ``.npz`` fixtures), and
-returns ``{layer: {"w": tensor, "b": tensor}}`` on ``device``, so the two
-packages compute on the same weights.
+``from_jax_params`` takes a tree ``init`` of the reference returns,
+converted to numpy (``jax.tree_util.tree_map(np.asarray, params)``): any
+nesting of dicts and lists, such as the VAE's ``{layer: {w, b}}`` or the
+HVAE's stages with their list of residual blocks. A top-level key
+``"<layer>.<w|b>"`` with an array value (the flat form the ``.npz``
+fixtures store) is read as ``{layer: {w|b: array}}``. It returns the same
+tree of float32 tensors on ``device``, so the two packages compute on the
+same weights.
 """
 
 from __future__ import annotations
@@ -20,13 +23,22 @@ from repro_torch import device as dev
 def from_jax_params(tree: Mapping[str, Any], *,
                     device: dev.DeviceLike = None) -> Dict[str, Any]:
     device = dev.resolve(device)
-    nested: Dict[str, Dict[str, Any]] = {}
+    nested: Dict[str, Any] = {}
     for key, value in tree.items():
-        if isinstance(value, Mapping):
-            nested.setdefault(key, {}).update(value)
+        if isinstance(value, (Mapping, list, tuple)) or "." not in key:
+            if isinstance(nested.get(key), dict):
+                nested[key].update(value)
+            else:
+                nested[key] = value
         else:
             layer, leaf = key.rsplit(".", 1)
             nested.setdefault(layer, {})[leaf] = value
-    return {layer: {k: torch.from_numpy(np.array(v, np.float32)).to(device)
-                    for k, v in p.items()}
-            for layer, p in nested.items()}
+
+    def convert(t: Any) -> Any:
+        if isinstance(t, Mapping):
+            return {k: convert(v) for k, v in t.items()}
+        if isinstance(t, (list, tuple)):
+            return [convert(v) for v in t]
+        return torch.from_numpy(np.array(t, np.float32)).to(device)
+
+    return convert(nested)

@@ -242,3 +242,59 @@ def test_block_push_does_not_sync(kernel):
     finally:
         torch.cuda.set_sync_debug_mode("default")
     assert torch.equal(got.buf, want.buf) and torch.equal(got.head, want.head)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lanes,lat_bits", [(1, 10), (130, 10), (300, 12),
+                                            (128, 6)])
+def test_bucketize_kernel_matches_twin(kernel, lanes, lat_bits):
+    """The posterior bucketize at any lane count, slots at both ends,
+    mu out to +-8 and sigma from 1e-3 to 30."""
+    from repro_torch.kernels.bucketize import kernel as bk
+    from repro_torch.kernels.bucketize import ops as bk_ops
+    from repro_torch.kernels.bucketize import twin as bk_twin
+
+    rng = np.random.default_rng(lanes + lat_bits)
+    slot = rng.integers(0, 1 << 16, lanes)
+    slot[:2] = (0, (1 << 16) - 1)[:lanes]
+    mu = rng.uniform(-8.0, 8.0, lanes).astype(np.float32)
+    sigma = np.exp(rng.uniform(np.log(1e-3), np.log(30.0), lanes))
+    c = [torch.from_numpy(slot.astype(np.int32)), torch.from_numpy(mu),
+         torch.from_numpy(sigma.astype(np.float32))]
+    e = discretize.edge_table(lat_bits, "cpu")
+    kernel.reset_launches()
+    got = bk.bucketize(*(t.cuda() for t in c), e.cuda(), lat_bits, 16)
+    want = bk_twin.bucketize(*c, e, lat_bits, 16)
+    for a, b in zip(got, want):
+        assert torch.equal(a.cpu(), b)
+    assert kernel.LAUNCHES["bucketize"] == 1
+    with pytest.raises(RuntimeError, match="only the kernel runs"):
+        bk_ops.bucketize(*(t.cuda() for t in c), lat_bits, 16,
+                         backend="torch")
+
+
+@pytest.mark.cuda
+def test_hvae_kernel_leaf_on_the_card(kernel):
+    """The float HVAE (ch 8, 8 x 8) on the card: the bucketize-kernel
+    codec, the plain one and the compiled one write the same bytes, and
+    the kernel decodes one latent position per launch."""
+    from repro_torch.models import hvae
+
+    cfg = hvae.HVAEConfig(levels=2, ch=8, z_ch=2, n_res=1)
+    params = hvae.init(cfg, torch.Generator().manual_seed(1), device="cuda")
+    data = torch.from_numpy(np.random.default_rng(5).integers(
+        0, 2, (1, 16, 8, 8)).astype(np.int32)).cuda()
+    kw = dict(lanes=16, seed=0, init_chunks=256, device="cuda")
+    blobs = []
+    for opt in ({"use_bucketize_kernel": True}, {}, {"compiled": True}):
+        kernel.reset_launches()
+        chain = codecs.Chained(hvae.make_bitswap_codec(params, cfg, (8, 8),
+                                                       **opt), 1)
+        blobs.append(codecs.compress(chain, data, **kw))
+        if opt.get("use_bucketize_kernel"):
+            assert kernel.LAUNCHES["bucketize"] == 2 * 4 * 4 * 2
+            kernel.reset_launches()
+            assert torch.equal(codecs.decompress(chain, blobs[0],
+                                                 device="cuda"), data)
+            assert kernel.LAUNCHES["bucketize"] == 4 * 4 * 2
+    assert blobs[0] == blobs[1] == blobs[2]
