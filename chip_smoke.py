@@ -64,9 +64,25 @@ Phases, each on a line of its own; any failure exits non-zero:
      to encode and 784 x 2 to decode;
  13. the Table-1 CLI on ``--arch hvae-small2`` (trained by the CLI, a BBX3
      corpus, its gate against gzip and bz2), then the card's bits/dim
-     against the CPU twin's at 8 lanes over 2 chain steps, within 2%.
+     against the CPU twin's at 8 lanes over 2 chain steps, within 2%;
+ 14. the LM served at full width: ``serve.Engine`` over qwen2-0.5b (24
+     layers, d 896, GQA 14:2, vocab 151,936; random weights from seed 0)
+     with ``max_len`` 4096 + 16. First the flash-attention kernel against
+     its plain version on q, k, v captured from layer 0 of the 2 x 4096
+     prefill (bf16, causal) and on a ragged windowed GQA case (4100
+     tokens, window 1024, float32): worst error, kernel, plain and
+     ``F.scaled_dot_product_attention`` times (the library column; the
+     port never calls it) and the bound. Then ``generate`` greedily
+     continues 2 uniform random prompts of 4096 tokens by 16, twice: the
+     same tokens, and exactly 24 flash launches (one a layer) per
+     prefill. ``compress``/``decompress`` of 4 lanes x 128 tokens
+     (lossless, bits/token, tokens/s) and ``compress_stream`` in blocks
+     of 32 with a ``decode_from_offset`` resume. Last, at reduced width
+     (vocab 300) the card's prefill logits of a 2100-token prompt against
+     the CPU twin's (the port on the CPU, plain flash): float32 compute
+     within 1e-3, bfloat16 within 0.1.
 
-Each path (phases 5-13) runs with the kernel launch counts set to 0 just
+Each path (phases 5-14) runs with the kernel launch counts set to 0 just
 before it and read just after, and fails if one of its kernels was not
 launched.
 
@@ -75,7 +91,8 @@ is ``{"ok": true, "device": {...}}``. Imports nothing of JAX or ``repro``.
 
 ``python3 chip_smoke.py --profile`` adds a ``torch.profiler`` trace of
 one more encode + decode of phases 5, 6, 8, 9, 11 and 12 (phase 12 over
-one image; device busy share, time
+one image), and of phase 14's compress + decompress (4 lanes x 32
+tokens) and its generate (device busy share, time
 per kernel and per host op, the count of ``aten::nonzero``, which must be
 0 in phases 5 and 6; the full tables go to
 ``build/smoke/profile_<phase>.txt``).
@@ -140,6 +157,25 @@ HV_INIT_CHUNKS = 1024
 CLI13_IMAGES, CLI13_LANES, CLI13_BLOCK, CLI13_STEPS = 8192, 32, 256, 4000
 CLI13_TWIN_LANES, CLI13_TWIN_STEPS = 8, 2
 
+# Phase 14: qwen2-0.5b at full width. The prompts reach the blockwise
+# length (2048), so every layer of a prefill attends through the flash
+# kernel.
+LM_ARCH = "qwen2-0.5b"
+LM_BATCH, LM_PROMPT, LM_NEW = 2, 4096, 16
+LM_LANES, LM_TOKENS, LM_BLOCK = 4, 128, 32
+LM_TWIN_PROMPT, LM_TWIN_VOCAB = 2100, 300
+# The ragged flash check: GQA 14:2, a window, float32.
+FLASH_RAGGED = dict(s=4100, window=1024)
+# Kernel against its plain version, as allclose with rtol = atol: float32
+# sums in another order (2e-5, the Pallas kernel test's tolerance);
+# bfloat16 outputs and p (2e-2).
+FLASH_TOL = {"float32": 2e-5, "bfloat16": 2e-2}
+# Card against CPU twin at reduced width: cuBLAS and the CPU sum in other
+# orders (float32: 1e-3 on logits near 1); bfloat16 rounds at other places
+# (0.1, the reference's own prefill tolerance).
+LM_TWIN_TOL = {"float32": 1e-3, "bfloat16": 0.1}
+LM_KERNELS = ("flash_fwd",)
+
 VAE_KERNELS = ("push_emit", "pop_dyntable_emit", "pop_grid_emit/gaussian",
                "pop_grid_emit/uniform", "grid_starts/gaussian")
 LOGISTIC_KERNELS = ("push_emit", "pop_grid_emit/logistic",
@@ -150,6 +186,7 @@ HVAE_EAGER_KERNELS = ("bucketize", "grid_starts/gaussian")
 # H100 SXM published peaks (NVIDIA data sheet; at a 700 W power limit).
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS = 67e12
+BF16_FLOPS = 989e12       # dense tensor-core rate
 # Float operations of one F(i) = floor(ndtr((z_i - mu) / sigma) * scale)
 # + i in kernels/common/ndtr.cuh, an fma counted as 2: 3 (x, z, 1/z) + 42
 # (erfc polynomials, 21 fma) + 22 (exp) + 5 (erfc tail) + 23 (erf: 10 fma,
@@ -172,6 +209,7 @@ REPLACES = {
     "grid_starts/gaussian": "src/repro/codecs/compile.py:357",
     "grid_starts/logistic": "src/repro/codecs/compile.py:97",
     "bucketize": "src/repro/kernels/bucketize/kernel.py:37",
+    "flash_fwd": "src/repro/kernels/flash/kernel.py:28",
 }
 SOURCES = {
     "push_emit": "src/repro_torch/kernels/ans/csrc/push.cu",
@@ -184,6 +222,7 @@ SOURCES = {
     "grid_starts/gaussian": "src/repro_torch/kernels/ans/csrc/grid_starts.cu",
     "grid_starts/logistic": "src/repro_torch/kernels/ans/csrc/grid_starts.cu",
     "bucketize": "src/repro_torch/kernels/bucketize/csrc/bucketize.cu",
+    "flash_fwd": "src/repro_torch/kernels/flash/csrc/flash_fwd.cu",
 }
 
 
@@ -353,7 +392,7 @@ def check_kernels():
     e_gpu = discretize.edge_table(10, "cuda")
     records, failed = [], False
     for name in REPLACES:
-        if name == "bucketize":
+        if name in ("bucketize", "flash_fwd"):
             continue
         got = run(K, name, gpu, e_gpu)
         worst, bad = max_err(got, run(T, name, gpu, e_gpu))
@@ -967,6 +1006,230 @@ def hvae_cli_path(card: str):
     return launches
 
 
+def lm_layer0_qkv(params, cfg, tokens):
+    """q, k, v of layer 0 of the prefill of ``tokens``, in the flash
+    kernel's layout ([B * H, S, Dh], contiguous), as ``prefill`` computes
+    them before it attends."""
+    import torch
+    from repro_torch.models import attention, layers, transformer
+
+    dt = transformer._compute_dtype(cfg)
+    b, s = tokens.shape
+    p0 = transformer._layers(params["blocks"], 1)[0]
+    x = layers.embed_apply(params["embed"], tokens, dt)
+    h = layers.norm_apply(cfg.norm, p0["ln1"], x)
+    q, k, v = attention._qkv(p0["attn"], h, cfg,
+                             transformer._positions(cfg, b, s, x.device), dt)
+    fold = lambda t: t.transpose(1, 2).reshape(-1, s, t.shape[-1]) \
+        .contiguous()
+    return fold(q), fold(k), fold(v)
+
+
+def flash_bound(bh: int, bkv: int, sq: int, sk: int, d: int, itemsize: int,
+                causal: bool, window: int) -> tuple:
+    """(bound ms, what bounds it): q, k, v read once and the output written
+    once, against q . k and p . v over the (query, key) pairs the masks
+    leave, at the bf16 tensor-core rate."""
+    pairs = 0
+    for qi in range(sq):
+        hi = min(sk, qi + 1) if causal else sk
+        lo = max(0, qi - window + 1) if window > 0 else 0
+        pairs += max(0, hi - lo)
+    flops = 2 * 2 * bh * pairs * d
+    nbytes = itemsize * d * (2 * bh * sq + 2 * bkv * sk)
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / BF16_FLOPS * 1e3
+    return max(t_bytes, t_ops), ("operations" if t_ops > t_bytes
+                                 else "bytes")
+
+
+def check_flash(q, k, v, *, causal: bool, window: int, label: str,
+                library: bool) -> dict:
+    """The flash kernel against its plain version on (q, k, v) [BH, S, D]
+    on the card; returns the kernel's record."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash import kernel as FK
+    from repro_torch.kernels.flash import twin as FT
+
+    kw = dict(causal=causal, window=window)
+    got = FK.flash_fwd(q, k, v, **kw)
+    want, plain_ms = cuda_span(lambda: FT.flash_fwd(q, k, v, **kw))
+    name = "bfloat16" if q.dtype == torch.bfloat16 else "float32"
+    tol = FLASH_TOL[name]
+    diff = (got.float() - want.float()).abs()
+    worst = float(diff.max())
+    # allclose with rtol = atol = tol: outputs of layer 0 reach tens, where
+    # one bfloat16 ulp is 0.25
+    ratio = float((diff / (tol + tol * want.float().abs())).max())
+    ms = cuda_ms(lambda: FK.flash_fwd(q, k, v, **kw), 10)
+    bh, sq, d = q.shape
+    bkv, sk = k.shape[:2]
+    bound_ms, bound_by = flash_bound(bh, bkv, sq, sk, d, q.element_size(),
+                                     causal, window)
+    library_ms = None
+    if library:
+        # SDPA on [1, BH, S, D] with the key heads repeated (outside the
+        # timed call): the library column only.
+        g = bh // bkv
+        q4, k4, v4 = (t[None] for t in (q, k.repeat_interleave(g, 0),
+                                        v.repeat_interleave(g, 0)))
+        library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
+            q4, k4, v4, is_causal=causal), 10)
+    say(f"phase 14: flash_fwd {label} ({bh} heads on {bkv} key heads, "
+        f"{sq} x {sk}, D {d}, {name}, causal {causal}, window {window}): "
+        f"max_abs_err {worst:.3g} at |out| up to "
+        f"{float(want.float().abs().max()):.3g} (rtol = atol = {tol}: "
+        f"{ratio:.3g} of it), kernel "
+        f"{ms:.4f} ms, plain {plain_ms:.2f} ms, SDPA "
+        f"{'-' if library_ms is None else f'{library_ms:.4f}'} ms, bound "
+        f"{bound_ms:.5f} ms ({bound_by})")
+    if not ratio <= 1.0:
+        raise SystemExit("phase 14: the flash kernel disagrees with its "
+                         "plain version")
+    return {"name": "flash_fwd", "route": "cuda",
+            "source": SOURCES["flash_fwd"], "replaces": REPLACES["flash_fwd"],
+            "launches": 0, "max_abs_err": worst, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": library_ms}
+
+
+def lm_twin_check() -> None:
+    """Phase 14's card against CPU twin: the reduced qwen2-0.5b's prefill
+    logits of one 2100-token prompt (the blockwise branch: plain flash on
+    the CPU, the kernel on the card)."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+    from repro_torch.configs import base
+    from repro_torch.models import transformer
+
+    toks = torch.from_numpy(np.random.default_rng(1).integers(
+        0, LM_TWIN_VOCAB, (1, LM_TWIN_PROMPT)).astype(np.int32))
+    for compute, tol in LM_TWIN_TOL.items():
+        cfg = dataclasses.replace(base.reduced(base.get(LM_ARCH)),
+                                  vocab=LM_TWIN_VOCAB, compute_dtype=compute)
+        params = transformer.init(cfg, torch.Generator().manual_seed(0),
+                                  device="cpu")
+        on_card = transformer._tree_map(lambda t: t.cuda(), params)
+        t0 = time.perf_counter()
+        cpu = transformer.prefill(params, cfg, {"tokens": toks},
+                                  LM_TWIN_PROMPT)[0]
+        t_cpu = time.perf_counter() - t0
+        card = transformer.prefill(on_card, cfg, {"tokens": toks.cuda()},
+                                   LM_TWIN_PROMPT)[0].cpu()
+        err = float((card.float() - cpu.float()).abs().max())
+        say(f"phase 14: reduced {LM_ARCH} ({cfg.n_layers} layers, width "
+            f"{cfg.d_model}, vocab {cfg.vocab}), {LM_TWIN_PROMPT}-token "
+            f"prefill at {compute}: card vs CPU twin max |logit diff| "
+            f"{err:.3g} (tolerance {tol}; logits up to "
+            f"{float(cpu.float().abs().max()):.3g}; CPU twin {t_cpu:.1f} s)")
+        if not err <= tol:
+            raise SystemExit("phase 14: card and CPU twin prefill logits "
+                             "disagree")
+
+
+def lm_serve_path(card: str):
+    """Phase 14: the LM serving engine on qwen2-0.5b at full width;
+    returns (the flash records, launch counts of one generate, and the
+    traced pairs)."""
+    import numpy as np
+    import torch
+    from repro_torch import stream
+    from repro_torch.configs import base
+    from repro_torch.kernels.ans import kernel as K
+    from repro_torch.models import transformer
+    from repro_torch.serve import Engine
+
+    t_phase = time.perf_counter()
+    cfg = base.get(LM_ARCH)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    params = transformer.init(cfg, gen, device="cuda")
+    eng = Engine(params, cfg, max_len=LM_PROMPT + LM_NEW, device="cuda")
+    rng = np.random.default_rng(0)
+    prompts = {"tokens": torch.from_numpy(rng.integers(
+        0, cfg.vocab, (LM_BATCH, LM_PROMPT)).astype(np.int32)).cuda()}
+
+    records = [check_flash(*lm_layer0_qkv(params, cfg, prompts["tokens"]),
+                           causal=True, window=0, label="layer 0 of the "
+                           "prefill", library=True)]
+    q, k, v = (torch.from_numpy(rng.normal(0, 1, (n, FLASH_RAGGED["s"],
+                                                  cfg.head_dim))
+                                .astype(np.float32)).cuda()
+               for n in (LM_BATCH * cfg.n_heads, LM_BATCH * cfg.n_kv_heads,
+                         LM_BATCH * cfg.n_kv_heads))
+    check_flash(q, k, v, causal=True, window=FLASH_RAGGED["window"],
+                label="ragged", library=False)
+    del q, k, v
+
+    generate = lambda: eng.generate(prompts, LM_NEW)
+    (first, gen_ms), launches = counted("phase 14", LM_KERNELS,
+                                        lambda: cuda_span(generate))
+    K.reset_launches()
+    second = generate()
+    again = K.LAUNCHES["flash_fwd"]
+    same = torch.equal(first, second)
+    say(f"phase 14: {LM_ARCH} at full width ({cfg.n_layers} layers, d "
+        f"{cfg.d_model}, {cfg.n_heads}:{cfg.n_kv_heads} heads, d_ff "
+        f"{cfg.d_ff}, vocab {cfg.vocab}; "
+        f"{sum(t.numel() for t in _leaves(params)) / 1e6:.1f}M float32 "
+        f"parameters): generate {LM_BATCH} x {LM_PROMPT} + {LM_NEW} in "
+        f"{gen_ms:.1f} ms; the same tokens twice: {same}; flash launches "
+        f"{launches['flash_fwd']} and {again} (want {cfg.n_layers} a "
+        f"prefill) on {card}")
+    if not same or launches["flash_fwd"] != cfg.n_layers \
+            or again != cfg.n_layers:
+        raise SystemExit("phase 14: generate is not deterministic or did "
+                         "not attend through the flash kernel once a layer")
+
+    toks = torch.from_numpy(rng.integers(
+        0, cfg.vocab, (LM_LANES, LM_TOKENS)).astype(np.int32)).cuda()
+    n = toks.numel()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    blob = eng.compress(toks)
+    torch.cuda.synchronize()
+    t_enc = time.perf_counter() - t0
+    back = eng.decompress(blob, LM_TOKENS)
+    torch.cuda.synchronize()
+    t_dec = time.perf_counter() - t0 - t_enc
+    lossless = torch.equal(back, toks)
+    say(f"phase 14: compress {LM_LANES} lanes x {LM_TOKENS} tokens: "
+        f"{len(blob)} bytes, {8 * len(blob) / n:.4f} bits/token "
+        f"(log2 V = {np.log2(cfg.vocab):.4f}), lossless {lossless}; "
+        f"{n / t_enc:.1f} tokens/s encode, {n / t_dec:.1f} tokens/s decode "
+        f"(host clock)")
+    wire = eng.compress_stream(toks, block_symbols=LM_BLOCK)
+    _, offsets, _ = stream.format.scan(wire)
+    tail = stream.decode_from_offset(None, wire, offsets[1],
+                                     block_codec_fn=eng._block_codec_fn(),
+                                     device="cuda")
+    streamed = torch.equal(eng.decompress_stream(wire), toks)
+    resumed = torch.equal(tail.T, toks[:, LM_BLOCK:])
+    say(f"phase 14: compress_stream in blocks of {LM_BLOCK}: {len(wire)} "
+        f"bytes over {len(offsets)} blocks, lossless {streamed}; resume "
+        f"from block 1 (byte {offsets[1]}) lossless {resumed}")
+    if not (lossless and streamed and resumed):
+        raise SystemExit("phase 14: the token streams did not decode "
+                         "losslessly")
+    lm_twin_check()
+    say(f"phase 14: wall {time.perf_counter() - t_phase:.1f} s")
+    # One block's tokens: a trace of the whole 128 (some 840,000 launches)
+    # takes the profiler minutes to sum.
+    traced = {
+        "phase14": (lambda: eng.compress(toks[:, :LM_BLOCK]),
+                    lambda b: eng.decompress(b, LM_BLOCK)),
+        "phase14_generate": (generate, lambda out: None)}
+    return records, launches, traced
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        return [x for v in tree.values() for x in _leaves(v)]
+    return [tree]
+
+
 def main_path(card: str, data):
     """Phase 5 on ``data`` [CHAIN, PATH_LANES, 784]; returns (launch
     counts, encode, decode, params)."""
@@ -1118,6 +1381,10 @@ def main() -> int:
     stamp("phase 12")
     by_path["hvae_cli"] = hvae_cli_path(smi)
     stamp("phase 13")
+    flash_records, by_path["lm_generate"], lm_traced = lm_serve_path(smi)
+    records += flash_records
+    traced.update(lm_traced)
+    stamp("phase 14")
     if "--profile" in sys.argv[1:]:
         syncs = {label: profile(label, encode, decode)
                  for label, (encode, decode) in traced.items()}

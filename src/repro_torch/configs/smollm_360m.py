@@ -1,0 +1,11 @@
+"""smollm-360m [dense]: llama-arch small, tied embeddings.
+[hf:HuggingFaceTB/SmolLM-135M; hf]"""
+from repro_torch.configs.base import ArchConfig, register
+
+CONFIG = register(ArchConfig(
+    name="smollm-360m", family="dense",
+    n_layers=32, d_model=960, n_heads=15, n_kv_heads=5,
+    d_ff=2560, vocab=49152,
+    tie_embeddings=True, rope_kind="rope",
+    optimizer="adamw", remat="full", grad_accum=2, fsdp_regather_once=True,
+))

@@ -1,7 +1,7 @@
 """Observation-model coders (port of ``repro.core.distributions``):
-``Bernoulli`` and ``Categorical`` over a static per-lane table.
-BetaBinomial and FactoredCategorical are not ported yet (ROADMAP queue 1,
-item 3).
+``Bernoulli``, ``Categorical`` over a static per-lane table, and
+``FactoredCategorical`` (an LM vocabulary as chunk and offset).
+BetaBinomial is not ported yet (ROADMAP queue 1, item 3).
 
 The Bernoulli table is ``round(sigmoid(logit) * (2^p - 2)) + 1`` with
 XLA-CPU's float32 sigmoid (``xla_ndtr.sigmoid_f32``) and round half to
@@ -27,7 +27,7 @@ import torch
 
 from repro_torch.core import ans
 from repro_torch.core.codec import Codec
-from repro_torch.core.xla_ndtr import _exp_f32, _flush, sigmoid_f32
+from repro_torch.core.xla_ndtr import _exp_f32, _flush, log_f32, sigmoid_f32
 
 
 def _stable_softmax(logits: torch.Tensor) -> torch.Tensor:
@@ -110,5 +110,80 @@ class Categorical(Codec):
     def log_prob(self, sym: torch.Tensor) -> torch.Tensor:
         """Natural-log probability of ``sym`` per lane (float32; a rate
         figure, not a coding table - not bit-matched to the reference)."""
+        logp = torch.log_softmax(self.logits.to(torch.float32), dim=-1)
+        return logp.gather(-1, sym.to(torch.int64)[:, None])[:, 0]
+
+
+# ---------------------------------------------------------------------------
+# Factored categorical (LM vocabularies beyond 2^(precision-1))
+# ---------------------------------------------------------------------------
+
+def logsumexp_f32(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.logsumexp`` over the last axis on XLA-CPU (float32), bit
+    for bit: the row max (0 where it is not finite), XLA's ``exp_f32`` of
+    the difference with subnormals flushed, the sum in XLA's order
+    (``ans.sum_f32``), XLA's ``log_f32``, plus the max."""
+    x = x.to(torch.float32)
+    amax = x.amax(dim=-1, keepdim=True)
+    amax = torch.where(torch.isfinite(amax), amax, torch.zeros_like(amax))
+    sumexp = ans.sum_f32(_flush(_exp_f32(x - amax)))
+    return (log_f32(sumexp) + amax)[..., 0]
+
+
+@dataclasses.dataclass(frozen=True)
+class FactoredCategorical(Codec):
+    """Categorical over a large vocabulary, coded as (chunk, offset).
+
+    A token ``v`` is coded as ``hi = v // chunk_size`` under the chunk
+    marginal (each chunk's logsumexp, ``logsumexp_f32``) after ``lo = v %
+    chunk_size`` under the within-chunk conditional: ``push`` pushes lo
+    then hi, so ``pop`` pops hi then lo. A vocabulary of one chunk codes
+    no hi (it would carry 0 bits, and its frequency 2^precision overflows
+    the fixed point). The last chunk is padded with -1e30 logits. Every
+    table is the reference's, bit for bit, given the same float32 logits.
+    """
+
+    logits: torch.Tensor  # float[lanes, V]
+    chunk_size: int = 256
+    precision: int = ans.DEFAULT_PRECISION
+
+    def _parts(self):
+        lanes, v = self.logits.shape
+        cs = self.chunk_size
+        n_chunks = -(-v // cs)
+        pad = n_chunks * cs - v
+        logits = self.logits.to(torch.float32)
+        if pad:
+            logits = torch.nn.functional.pad(logits, (0, pad), value=-1e30)
+        grouped = logits.reshape(lanes, n_chunks, cs)
+        return grouped, logsumexp_f32(grouped), n_chunks
+
+    def push(self, stack: ans.ANSStack, sym: torch.Tensor) -> ans.ANSStack:
+        grouped, chunk_logits, n_chunks = self._parts()
+        sym = sym.to(torch.int64)
+        hi = sym // self.chunk_size
+        lo = sym % self.chunk_size
+        rows = torch.arange(grouped.shape[0], device=grouped.device)
+        stack = Categorical(grouped[rows, hi], self.precision).push(stack, lo)
+        if n_chunks > 1:
+            stack = Categorical(chunk_logits, self.precision).push(stack, hi)
+        return stack
+
+    def pop(self, stack: ans.ANSStack) -> Tuple[ans.ANSStack, torch.Tensor]:
+        grouped, chunk_logits, n_chunks = self._parts()
+        rows = torch.arange(grouped.shape[0], device=grouped.device)
+        if n_chunks > 1:
+            stack, hi = Categorical(chunk_logits, self.precision).pop(stack)
+        else:
+            hi = torch.zeros((grouped.shape[0],), dtype=torch.int32,
+                             device=grouped.device)
+        within = Categorical(grouped[rows, hi.to(torch.int64)],
+                             self.precision)
+        stack, lo = within.pop(stack)
+        return stack, hi * self.chunk_size + lo
+
+    def log_prob(self, sym: torch.Tensor) -> torch.Tensor:
+        """Natural-log probability of ``sym`` per lane (a rate figure, not
+        bit-matched to the reference)."""
         logp = torch.log_softmax(self.logits.to(torch.float32), dim=-1)
         return logp.gather(-1, sym.to(torch.int64)[:, None])[:, 0]

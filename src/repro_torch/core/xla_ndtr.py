@@ -1,4 +1,5 @@
-"""XLA-CPU's float32 ``ndtr`` and ``sigmoid``, op for op, in PyTorch.
+"""XLA-CPU's float32 ``ndtr``, ``sigmoid`` and ``log``, op for op, in
+PyTorch.
 
 ``torch.special.ndtr`` is not the function the JAX reference evaluates:
 over 2M float32 inputs it differs from ``jax.scipy.special.ndtr`` on about
@@ -35,6 +36,10 @@ rounded division, and the subnormal results (``x`` in about
 ``[-88.72, -87.34]``, where ``exp(-x)`` nears the float32 maximum)
 flushed to zero as XLA's CPU runtime flushes them. ``kernels/common/
 xla_math.cuh`` holds the same sequence for the CUDA kernels.
+
+``jnp.log`` (and the log inside ``jax.nn.logsumexp``, the LM coder's
+chunk marginal) is Cephes' ``logf`` with its fma sites read from the
+machine code: ``log_f32``, 0 differences over 3M inputs.
 """
 
 from __future__ import annotations
@@ -174,3 +179,50 @@ def ndtr(a: torch.Tensor) -> torch.Tensor:
     upper = torch.where(x > 0, 2.0 - erfc, erfc)
     y = torch.where(ax < HALF_SQRT2, erf + 1.0, upper)
     return _flush(y * 0.5)
+
+
+# XLA's log_f32: Cephes' logf (the reference's ``jnp.log`` and the log of
+# ``jax.nn.logsumexp``), read from the dumped IR and machine code.
+LOG_SQRTHF = _h("0x1.6a09e6p-1")           # 0.70710677
+LOG_P = (_h("0x1.204376p-4"), _h("-0x1.d7a37p-4"), _h("0x1.de4a34p-4"),
+         _h("-0x1.fcba9ep-4"), _h("0x1.23d37ep-3"), _h("-0x1.555ca0p-3"),
+         _h("0x1.999d58p-3"), _h("-0x1.fffff8p-3"), _h("0x1.555554p-2"))
+LOG_Q1, LOG_Q2 = _h("-0x1.bd0106p-13"), _h("0x1.63p-1")
+
+
+def log_f32(a: torch.Tensor) -> torch.Tensor:
+    """``jnp.log`` on XLA-CPU (float32), bit for bit, eager and jitted.
+
+    The argument is split into a mantissa ``m`` in [0.5, 1) and an
+    exponent ``e`` (inputs below 2^-126 read as 2^-126); ``x = m - 1``,
+    or ``2m - 1`` with ``e - 1`` when ``m < sqrt(1/2)``. Then, with
+    ``x2 = x * x`` and ``x3 = x2 * x``, three Horner pairs as fma
+    (``p0..p2``, ``p3..p5``, ``p6..p8``), joined by ``fma(y, x3, .)``; the
+    last joins ``e * q1``; ``fma(-0.5, x2, x) + y``; and
+    ``fma(q2, e, .)``. ``a <= 0`` or NaN gives NaN, 0 gives -inf and
+    +inf gives +inf; a subnormal argument reads as 0, as XLA's CPU
+    runtime reads it.
+    """
+    a = _flush(a.float())
+    xc = torch.where(a <= FLT_MIN, torch.full_like(a, FLT_MIN), a)
+    bits = xc.view(torch.int32)
+    emm0 = torch.bitwise_right_shift(bits, 23) & 0x1FF
+    m = ((bits & ~0x7F800000) | 0x3F000000).view(torch.float32)
+    e = (emm0 - 127).float() + 1.0
+    small = m < LOG_SQRTHF
+    x = (m - 1.0) + torch.where(small, m, torch.zeros_like(m))
+    e = e - small.float()
+    x2 = x * x
+    x3 = x2 * x
+    y = fma_f32(fma_f32(_full(x, LOG_P[0]), x, LOG_P[1]), x, LOG_P[2])
+    y1 = fma_f32(fma_f32(_full(x, LOG_P[3]), x, LOG_P[4]), x, LOG_P[5])
+    y2 = fma_f32(fma_f32(_full(x, LOG_P[6]), x, LOG_P[7]), x, LOG_P[8])
+    y = fma_f32(y, x3, y1)
+    y = fma_f32(y, x3, y2)
+    y = fma_f32(y, x3, e * LOG_Q1)
+    out = fma_f32(_full(x, -0.5), x2, x) + y
+    out = fma_f32(_full(e, LOG_Q2), e, out)
+    out = torch.where(a == 0, torch.full_like(a, float("-inf")), out)
+    out = torch.where(a == float("inf"), a, out)
+    return torch.where((a < 0) | torch.isnan(a),
+                       torch.full_like(a, float("nan")), out)

@@ -1,5 +1,6 @@
-// PyTorch bindings of the six ANS kernels and the posterior bucketize
-// (../../bucketize/csrc/bucketize.cu). Each entry point takes typed
+// PyTorch bindings of the six ANS kernels, the posterior bucketize
+// (../../bucketize/csrc/bucketize.cu) and the flash-attention forward
+// (../../flash/csrc/flash_fwd.cu). Each entry point takes typed
 // tensors, checks device, dtype, shape and contiguity, allocates its
 // outputs, and launches on PyTorch's current stream of the tensors' card
 // (a device guard makes that card current). A failed check raises
@@ -9,6 +10,7 @@
 #include <c10/cuda/CUDAGuard.h>
 #include <torch/extension.h>
 
+#include <cstdint>
 #include <string>
 #include <vector>
 
@@ -43,6 +45,10 @@ cudaError_t launch_bucketize(const int32_t* slot, const float* mu,
                              const float* sigma, const float* edges,
                              int32_t* idx, int32_t* start, int32_t* freq,
                              int lanes, int lat_bits, int precision,
+                             cudaStream_t stream);
+cudaError_t launch_flash_fwd(const void* q, const void* k, const void* v,
+                             void* out, int bh, int group, int sq, int sk,
+                             int d, int causal, int window, int bf16,
                              cudaStream_t stream);
 
 namespace {
@@ -282,6 +288,38 @@ std::vector<Tensor> posterior_bucketize(const Tensor& slot, const Tensor& mu,
   return {idx, start, freq};
 }
 
+// q [BH, Sq, D]; k, v [BH / G, Sk, D]: contiguous, one card, all float32
+// or all bfloat16, D <= 128 -> out [BH, Sq, D].
+Tensor flash_fwd(const Tensor& q, const Tensor& k, const Tensor& v,
+                 bool causal, int64_t window) {
+  const torch::Device dev = card(q);
+  dims(q, "q", 3);
+  dims(k, "k", 3);
+  const int64_t bh = q.size(0), sq = q.size(1), d = q.size(2);
+  const int64_t bkv = k.size(0), sk = k.size(1);
+  const auto dtype = q.scalar_type();
+  TORCH_CHECK_VALUE(
+      dtype == torch::kFloat32 || dtype == torch::kBFloat16,
+      "kernels.flash: q must be float32 or bfloat16, got ", dtype);
+  TORCH_CHECK_VALUE(d >= 1 && d <= 128, "kernels.flash: head dim must be in "
+                    "[1, 128], got ", d);
+  TORCH_CHECK_VALUE(bkv >= 1 && bh % bkv == 0, "kernels.flash: ", bh,
+                    " query heads do not share ", bkv, " key heads evenly");
+  TORCH_CHECK_VALUE(window >= INT32_MIN && window <= INT32_MAX,
+                    "kernels.flash: window out of int32 range: ", window);
+  need(q, "q", dtype, {bh, sq, d}, dev);
+  need(k, "k", dtype, {bkv, sk, d}, dev);
+  need(v, "v", dtype, {bkv, sk, d}, dev);
+  const c10::cuda::CUDAGuard guard(dev);
+  Tensor out = torch::empty_like(q);
+  launched(launch_flash_fwd(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                            out.data_ptr(), bh, bh / bkv, sq, sk, d, causal,
+                            (int)window, dtype == torch::kBFloat16,
+                            at::cuda::getCurrentCUDAStream()),
+           "flash_fwd");
+  return out;
+}
+
 PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
   m.def("push_emit", &push_emit);
   m.def("pop_table_emit", &pop_table_emit);
@@ -291,4 +329,5 @@ PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
   m.def("pop_grid_uniform", &pop_grid_uniform);
   m.def("grid_starts", &grid_starts);
   m.def("bucketize", &posterior_bucketize);
+  m.def("flash_fwd", &flash_fwd);
 }

@@ -1,9 +1,9 @@
-"""The hand-written CUDA kernels of the ANS coder and of the posterior
-bucketize, and their loader.
+"""The hand-written CUDA kernels of the ANS coder, of the posterior
+bucketize and of the flash-attention forward, and their loader.
 
-Seven kernels, one source each (``csrc/`` here, ``../bucketize/csrc/``),
-all one thread per lane with the step loop inside the thread (the Pallas
-``fori_loop``):
+Eight kernels, one source each (``csrc/`` here, ``../bucketize/csrc/``,
+``../flash/csrc/``). The coder's seven run one thread per lane with the
+step loop inside the thread (the Pallas ``fori_loop``):
 
   * ``push_emit``         - ``repro/kernels/ans/kernel.py:35 _push_kernel``;
   * ``pop_slots``         - ``kernel.py:92 _peek_kernel``;
@@ -21,14 +21,20 @@ all one thread per lane with the step loop inside the thread (the Pallas
                             _bucketize_kernel`` (one bisection and no pop;
                             its wrapper is ``kernels/bucketize/kernel.py``).
 
-Build: ``torch.utils.cpp_extension.load`` compiles the seven sources and
+and ``flash_fwd`` - ``repro/kernels/flash/kernel.py:28 _flash_fwd_kernel``
+- runs one block per tile of 128 queries of one head (its wrapper is
+``kernels/flash/kernel.py``).
+
+Build: ``torch.utils.cpp_extension.load`` compiles the eight sources and
 ``csrc/bindings.cpp`` (typed ``torch::Tensor`` entry points that check
 their tensors, hold a device guard, allocate the outputs and launch on
 PyTorch's current stream) into one extension on first use, into
 ``build/kernels/`` of the checkout; ninja compiles the sources in
 parallel and rebuilds only what changed. The flags keep the float
 arithmetic IEEE and uncontracted (``--fmad=false -prec-div=true
--ftz=false``, no fast math), which the bit-exact CDF needs. Each wrapper
+-ftz=false``, no fast math), which the bit-exact CDF needs; the flash
+kernel writes its products as explicit fma calls, so they hold for it
+too and one build serves all eight. Each wrapper
 here counts its launch in ``LAUNCHES``. A build or launch failure
 raises: nothing falls back to the plain versions (``twin.py``).
 """
@@ -57,6 +63,7 @@ SOURCES = {
     "pop_grid_emit": "ans/csrc/pop_grid.cu",
     "grid_starts": "ans/csrc/grid_starts.cu",
     "bucketize": "bucketize/csrc/bucketize.cu",
+    "flash_fwd": "flash/csrc/flash_fwd.cu",
 }
 
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "--fmad=false",
@@ -68,7 +75,8 @@ LAUNCHES: Dict[str, int] = {
     "push_emit": 0, "pop_slots": 0, "pop_table_emit": 0,
     "pop_dyntable_emit": 0, "pop_grid_emit/gaussian": 0,
     "pop_grid_emit/logistic": 0, "pop_grid_emit/uniform": 0,
-    "grid_starts/gaussian": 0, "grid_starts/logistic": 0, "bucketize": 0}
+    "grid_starts/gaussian": 0, "grid_starts/logistic": 0, "bucketize": 0,
+    "flash_fwd": 0}
 
 _EXT = None
 

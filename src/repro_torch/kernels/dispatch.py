@@ -1,13 +1,15 @@
-"""Backend choice for the coder kernels: cuda / torch / ref.
+"""Backend choice for the kernels: cuda / torch / ref.
 
-Every op in ``kernels/ans/ops.py``, and ``"bucketize"``
-(``kernels/bucketize/ops.py``), has three bit-identical versions:
+Every op in ``kernels/ans/ops.py``, ``"bucketize"``
+(``kernels/bucketize/ops.py``) and ``"flash"`` (``kernels/flash/ops.py``)
+has three versions - bit-identical for the coder's ops, equal within
+float32 rounding for the flash forward:
 
   * ``"cuda"``  - the hand-written CUDA kernel (``kernels/*/kernel.py``);
                   runs on CUDA tensors only;
   * ``"torch"`` - the plain PyTorch version (``kernels/*/twin.py``), the
                   CPU path;
-  * ``"ref"``   - the per-step oracle (``kernels/*/ref.py``).
+  * ``"ref"``   - the oracle (``kernels/*/ref.py``).
 
 ``resolve(op, device, backend)`` picks one with the reference's
 precedence (``repro/kernels/dispatch.py:129``): an explicit ``backend=``,

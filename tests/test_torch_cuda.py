@@ -298,3 +298,40 @@ def test_hvae_kernel_leaf_on_the_card(kernel):
                                                  device="cuda"), data)
             assert kernel.LAUNCHES["bucketize"] == 4 * 4 * 2
     assert blobs[0] == blobs[1] == blobs[2]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bh,g,sq,sk,d,causal,window,dtype", [
+    (4, 1, 64, 64, 16, True, 0, "float32"),
+    (6, 3, 300, 300, 64, True, 0, "bfloat16"),     # GQA, ragged tiles
+    (4, 2, 257, 257, 64, True, 100, "float32"),    # windowed
+    (2, 1, 96, 160, 32, False, 0, "float32"),
+    (4, 4, 130, 130, 128, True, 0, "bfloat16"),    # mistral-nemo's head
+    (2, 2, 100, 84, 8, True, 0, "float32"),
+])
+def test_flash_kernel_matches_twin(kernel, bh, g, sq, sk, d, causal,
+                                   window, dtype):
+    """The flash forward against its plain version on the same inputs on
+    the card (float32 sums in another order: 2e-5; bfloat16 outputs and
+    p: 2e-2, the Pallas kernel test's tolerances)."""
+    from repro_torch.kernels.flash import kernel as fk
+    from repro_torch.kernels.flash import ops as f_ops
+    from repro_torch.kernels.flash import twin as f_twin
+
+    rng = np.random.default_rng(bh + sq + d)
+    dt = getattr(torch, dtype)
+    q, k, v = (torch.from_numpy(rng.normal(0, 1, (n, s, d)).astype(
+        np.float32)).to(dt).cuda()
+        for n, s in ((bh, sq), (bh // g, sk), (bh // g, sk)))
+    kernel.reset_launches()
+    got = fk.flash_fwd(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert kernel.LAUNCHES["flash_fwd"] == 1
+    want = f_twin.flash_fwd(q, k, v, causal=causal, window=window)
+    assert got.dtype == dt and got.shape == q.shape
+    tol = 2e-2 if dtype == "bfloat16" else 2e-5
+    np.testing.assert_allclose(got.float().cpu().numpy(),
+                               want.float().cpu().numpy(), rtol=tol,
+                               atol=tol)
+    with pytest.raises(RuntimeError, match="only the kernel runs"):
+        f_ops.flash_attention(q[None], k[None], v[None], backend="torch")

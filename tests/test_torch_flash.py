@@ -1,0 +1,133 @@
+"""The port's flash-attention forward (``repro_torch.kernels.flash``) and
+``attention.sdpa_blockwise`` against the JAX reference on the CPU.
+
+The plain version (``twin.py``, the CPU path and what the CUDA kernel is
+held to on the card) and the exact-SDPA oracle (``ref.py``) are held to
+the Pallas kernel in interpret mode and to its oracle at
+``tests/test_kernels.py``'s five shapes, with that test's tolerances
+(float32 2e-5, bfloat16 2e-2: the float32 sums run in another order).
+The model-layout wrapper and ``sdpa_blockwise`` are held to the
+reference's in the GQA layout. The kernel itself runs only on the card
+(``tests/test_torch_cuda.py``, ``chip_smoke.py`` phase 14).
+"""
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import jax.numpy as jnp  # noqa: E402
+
+from repro.kernels.flash import kernel as ref_kernel  # noqa: E402
+from repro.kernels.flash import ops as ref_ops  # noqa: E402
+from repro.kernels.flash import ref as ref_ref  # noqa: E402
+from repro.models import attention as ref_attention  # noqa: E402
+from repro_torch.kernels import dispatch  # noqa: E402
+from repro_torch.kernels.flash import ops, ref, twin  # noqa: E402
+from repro_torch.models import attention  # noqa: E402
+
+SHAPES = [
+    (64, 64, 16, True, 0, "float32"),
+    (128, 128, 32, True, 40, "float32"),
+    (96, 160, 16, False, 0, "float32"),
+    (100, 84, 8, True, 0, "float32"),     # non-multiples of a block
+    (64, 64, 16, True, 0, "bfloat16"),
+]
+
+
+def _tol(dtype):
+    return 2e-2 if dtype == "bfloat16" else 2e-5
+
+
+def _pair(shape, dtype, seed):
+    """The same numpy draw as a JAX array and a torch tensor of ``dtype``
+    (bfloat16 rounds once, identically, on both sides)."""
+    x = np.random.default_rng(seed).normal(0, 1, shape).astype(np.float32)
+    t = torch.from_numpy(x).to(getattr(torch, dtype))
+    return jnp.asarray(t.float().numpy()).astype(dtype), t
+
+
+def _f32(x):
+    return x.float().numpy() if isinstance(x, torch.Tensor) \
+        else np.asarray(x, np.float32)
+
+
+@pytest.mark.parametrize("sq,sk,d,causal,window,dtype", SHAPES)
+def test_twin_and_ref_match_the_pallas_kernel_and_its_oracle(
+        sq, sk, d, causal, window, dtype):
+    bh = 3
+    (qj, q), (kj, k), (vj, v) = (
+        _pair((bh, n, d), dtype, sq + sk + i)
+        for i, n in enumerate((sq, sk, sk)))
+    want = ref_kernel.flash_fwd(qj, kj, vj, causal=causal, window=window,
+                                block_q=32, block_k=32, interpret=True)
+    oracle = ref_ref.flash_ref(qj, kj, vj, causal=causal, window=window)
+    got = twin.flash_fwd(q, k, v, causal=causal, window=window)
+    exact = ref.flash_ref(q, k, v, causal=causal, window=window)
+    assert got.dtype == q.dtype and got.shape == q.shape
+    tol = _tol(dtype)
+    for a, b in ((got, want), (exact, oracle), (got, oracle)):
+        np.testing.assert_allclose(_f32(a), _f32(b), rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("backend", ["torch", "ref"])
+@pytest.mark.parametrize("causal,window", [(True, 0), (True, 24),
+                                           (False, 0)])
+def test_gqa_layout_wrapper_matches_the_reference(backend, causal, window):
+    b, s, hq, hkv, dh = 2, 150, 4, 2, 16
+    (qj, q), (kj, k), (vj, v) = (
+        _pair((b, s, h, dh), "float32", 11 + i)
+        for i, h in enumerate((hq, hkv, hkv)))
+    want = ref_ops.flash_attention(qj, kj, vj, causal=causal,
+                                   window=window, block_q=32, block_k=32)
+    got = ops.flash_attention(q, k, v, causal=causal, window=window,
+                              backend=backend)
+    np.testing.assert_allclose(_f32(got), _f32(want), rtol=2e-5, atol=2e-5)
+
+
+@pytest.mark.parametrize("sq,window,dtype", [
+    (300, None, "float32"),        # causal, ragged against every tile
+    (257, 40, "float32"),          # windowed
+    (2100, 1 << 30, "float32"),    # the model's global window, blockwise
+    (300, 64, "bfloat16"),
+])
+def test_sdpa_blockwise_matches_the_reference(sq, window, dtype):
+    b, hq, hkv, dh = 1, 4, 2, 16
+    (qj, q), (kj, k), (vj, v) = (
+        _pair((b, sq, h, dh), dtype, sq + i)
+        for i, h in enumerate((hq, hkv, hkv)))
+    want = ref_attention.sdpa_blockwise(qj, kj, vj, causal=True,
+                                        window=window)
+    got = attention.sdpa_blockwise(q, k, v, causal=True, window=window)
+    assert got.dtype == v.dtype and got.shape == q.shape
+    # The reference rounds its scores and p . v blocks to bfloat16 in a
+    # bfloat16 model (einsum outputs); the kernel's function keeps them in
+    # float32 (the Pallas kernel's preferred_element_type), hence 4e-2.
+    tol = 4e-2 if dtype == "bfloat16" else 2e-5
+    np.testing.assert_allclose(_f32(got), _f32(want), rtol=tol, atol=tol)
+
+
+def test_twin_visits_only_the_tiles_the_masks_leave():
+    bq, bk = twin.BLOCK_Q, twin.BLOCK_K
+    assert twin.kv_tiles(0, bq, 4096, True, 0) == (0, bq // bk)
+    assert twin.kv_tiles(3 * bq, 4 * bq, 4096, True, 0) == (0, 4 * bq // bk)
+    assert twin.kv_tiles(3 * bq, 4 * bq, 4096, False, 0) == (0, 4096 // bk)
+    lo, hi = twin.kv_tiles(20 * bq, 21 * bq, 4096, True, 1024)
+    assert lo == (20 * bq - 1023) // bk and hi == 21 * bq // bk
+
+
+def test_sdpa_blockwise_is_forward_only():
+    q = torch.zeros((1, 8, 2, 4), requires_grad=True)
+    k = v = torch.zeros((1, 8, 2, 4))
+    with pytest.raises(NotImplementedError, match="item 6"):
+        attention.sdpa_blockwise(q, k, v, causal=True)
+    with torch.no_grad():
+        assert attention.sdpa_blockwise(q, k, v, causal=True).shape == \
+            q.shape
+
+
+def test_the_card_runs_the_kernel_or_raises():
+    q = torch.zeros((1, 8, 2, 4))
+    with pytest.raises(RuntimeError, match="cuda backend"):
+        ops.flash_attention(q, q, q, backend="cuda")
+    assert dispatch.resolve("flash", torch.device("cpu")) == "torch"
