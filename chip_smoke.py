@@ -13,9 +13,11 @@ Phases, each on a line of its own; any failure exits non-zero:
      same seeded inputs on the card) at 4096 lanes and the main paths'
      step counts: mismatch count, CUDA-event time of kernel and plain
      version, and the least time the card could take (bytes over HBM rate
-     or flops over the FP32 rate). The posterior bucketize also at 4097
-     lanes and lat_bits 12, with slots at 0 and 2^16 - 1, mu in [-8, 8]
-     and sigma in [1e-3, 30];
+     or flops over the FP32 rate). The push also on inputs at the edges
+     of its division by reciprocal (freq 1 and 2^precision, heads near
+     2^32, precisions 16 and 12), and timed at 32 lanes; the posterior
+     bucketize also at 4097 lanes and lat_bits 12, with slots at 0 and
+     2^16 - 1, mu in [-8, 8] and sigma in [1e-3, 30];
   4. the committed golden blobs ``tests/golden/bbx1_vae_fixedpoint.bin``,
      ``bbx2_stream.bin`` and ``bbx3_corpus.bin`` re-encoded on the card
      hex for hex and decoded losslessly;
@@ -67,20 +69,22 @@ Phases, each on a line of its own; any failure exits non-zero:
      against the CPU twin's at 8 lanes over 2 chain steps, within 2%;
  14. the LM served at full width: ``serve.Engine`` over qwen2-0.5b (24
      layers, d 896, GQA 14:2, vocab 151,936; random weights from seed 0)
-     with ``max_len`` 4096 + 16. First the flash-attention kernel against
-     its plain version on q, k, v captured from layer 0 of the 2 x 4096
-     prefill (bf16, causal) and on a ragged windowed GQA case (4100
-     tokens, window 1024, float32): worst error, kernel, plain and
+     with ``max_len`` 4096 + 16. First the flash-attention forward's two
+     routes against their plain version: the tensor-core route on q, k, v
+     captured from layer 0 of the 2 x 4096 prefill (bf16, causal) and
+     the float32 route on a ragged windowed GQA case (4100 tokens, window
+     1024): worst error, kernel, plain and
      ``F.scaled_dot_product_attention`` times (the library column; the
      port never calls it) and the bound. Then ``generate`` greedily
      continues 2 uniform random prompts of 4096 tokens by 16, twice: the
-     same tokens, and exactly 24 flash launches (one a layer) per
-     prefill. ``compress``/``decompress`` of 4 lanes x 128 tokens
-     (lossless, bits/token, tokens/s) and ``compress_stream`` in blocks
-     of 32 with a ``decode_from_offset`` resume. Last, at reduced width
-     (vocab 300) the card's prefill logits of a 2100-token prompt against
-     the CPU twin's (the port on the CPU, plain flash): float32 compute
-     within 1e-3, bfloat16 within 0.1.
+     same tokens, and exactly 24 tensor-core flash launches (one a
+     layer) per prefill. ``compress``/``decompress`` of 4 lanes x 128
+     tokens (lossless, bits/token, tokens/s) and ``compress_stream`` in
+     blocks of 32 with a ``decode_from_offset`` resume. Last, at reduced
+     width (vocab 300) the card's prefill logits of a 2100-token prompt
+     against the CPU twin's (the port on the CPU, plain flash): float32
+     compute within 1e-3 (through the float32 route), bfloat16 within 0.1
+     (the tensor-core route), each prefill's launches counted.
 
 Each path (phases 5-14) runs with the kernel launch counts set to 0 just
 before it and read just after, and fails if one of its kernels was not
@@ -137,6 +141,11 @@ TABLE_STEPS = CAT_BLOCK   # pop_table_emit check: one block's pops
 # LANES, and the largest committed grid at a lane count off the block
 # size.
 BK_CASES = ((LANES, 10), (LANES + 1, 12))
+# The push's adversarial cases (lanes, steps, precision): freq 1 and
+# 2^precision among random ones, heads within 2^12 of 2^32; at 32 lanes
+# its time is phase 13's width (one block).
+PUSH_EDGES = ((LANES, 784, 16), (LANES + 5, 300, 12))
+PUSH_NARROW = 32
 # Phases 11 and 12: hvae-base2 widths on 28 x 28 digits.
 HV_LANES, HV_CHAIN = 1024, 4
 HVF_LANES, HVF_CHAIN = 256, 2
@@ -174,7 +183,7 @@ FLASH_TOL = {"float32": 2e-5, "bfloat16": 2e-2}
 # orders (float32: 1e-3 on logits near 1); bfloat16 rounds at other places
 # (0.1, the reference's own prefill tolerance).
 LM_TWIN_TOL = {"float32": 1e-3, "bfloat16": 0.1}
-LM_KERNELS = ("flash_fwd",)
+LM_KERNELS = ("flash_fwd/wgmma",)
 
 VAE_KERNELS = ("push_emit", "pop_dyntable_emit", "pop_grid_emit/gaussian",
                "pop_grid_emit/uniform", "grid_starts/gaussian")
@@ -209,7 +218,8 @@ REPLACES = {
     "grid_starts/gaussian": "src/repro/codecs/compile.py:357",
     "grid_starts/logistic": "src/repro/codecs/compile.py:97",
     "bucketize": "src/repro/kernels/bucketize/kernel.py:37",
-    "flash_fwd": "src/repro/kernels/flash/kernel.py:28",
+    "flash_fwd/wgmma": "src/repro/kernels/flash/kernel.py:28",
+    "flash_fwd/simt": "src/repro/kernels/flash/kernel.py:28",
 }
 SOURCES = {
     "push_emit": "src/repro_torch/kernels/ans/csrc/push.cu",
@@ -222,7 +232,9 @@ SOURCES = {
     "grid_starts/gaussian": "src/repro_torch/kernels/ans/csrc/grid_starts.cu",
     "grid_starts/logistic": "src/repro_torch/kernels/ans/csrc/grid_starts.cu",
     "bucketize": "src/repro_torch/kernels/bucketize/csrc/bucketize.cu",
-    "flash_fwd": "src/repro_torch/kernels/flash/csrc/flash_fwd.cu",
+    "flash_fwd/wgmma":
+        "src/repro_torch/kernels/flash/csrc/flash_fwd_wgmma.cu",
+    "flash_fwd/simt": "src/repro_torch/kernels/flash/csrc/flash_fwd.cu",
 }
 
 
@@ -392,7 +404,7 @@ def check_kernels():
     e_gpu = discretize.edge_table(10, "cuda")
     records, failed = [], False
     for name in REPLACES:
-        if name in ("bucketize", "flash_fwd"):
+        if name == "bucketize" or name.startswith("flash_fwd"):
             continue
         got = run(K, name, gpu, e_gpu)
         worst, bad = max_err(got, run(T, name, gpu, e_gpu))
@@ -401,11 +413,59 @@ def check_kernels():
         records.append(record(name, worst, bad, ms, plain_ms,
                               *work(name, got)))
         failed |= bad != 0
+    failed |= check_push(next(r for r in records
+                              if r["name"] == "push_emit"), gpu) != 0
     rec, bad = check_bucketize()
     records.append(rec)
     if failed or bad:
         raise SystemExit("phase 3: a kernel disagrees with its plain version")
     return records
+
+
+def push_edges(lanes: int, steps: int, precision: int):
+    """Seeded push inputs at the edges of the kernel's reciprocal
+    division, on the card: freq 1 and 2^precision (where freq <<
+    (32 - precision) wraps to 0) among random ones, start + freq <=
+    2^precision, and heads within 2^12 of 2^32."""
+    import numpy as np
+    import torch
+    rng = np.random.default_rng(lanes + steps + precision)
+    total = 1 << precision
+    pick = rng.random((steps, lanes))
+    freq = np.where(pick < 0.2, 1, np.where(
+        pick < 0.4, total, rng.integers(1, total + 1, (steps, lanes))))
+    start = rng.integers(0, total - freq + 1)
+    head = (1 << 32) - 1 - rng.integers(0, 1 << 12, lanes)
+    i32 = lambda a: torch.from_numpy(np.ascontiguousarray(a, np.int32))
+    return (torch.from_numpy(head.astype(np.int64)).cuda(),
+            i32(start).cuda(), i32(freq).cuda())
+
+
+def check_push(rec: dict, gpu: dict) -> int:
+    """Phase 3's push beyond its record: the adversarial inputs of
+    ``PUSH_EDGES`` bit for bit against the plain version, and the time at
+    ``PUSH_NARROW`` lanes (kept in ``rec`` as ``ms_narrow``); returns the
+    mismatch count."""
+    from repro_torch.kernels.ans import kernel as K
+    from repro_torch.kernels.ans import twin as T
+
+    bad_all = 0
+    for lanes, steps, precision in PUSH_EDGES:
+        args = (*push_edges(lanes, steps, precision), precision)
+        worst, bad = max_err(K.push_emit(*args), T.push_emit(*args))
+        say(f"phase 3: push_emit edges ({lanes} lanes x {steps} steps, "
+            f"precision {precision}, freq 1 and 2^{precision}, heads near "
+            f"2^32): mismatches {bad}, max_abs_err {worst}")
+        bad_all += bad
+    narrow = (gpu["head"][:PUSH_NARROW].contiguous(),
+              gpu["starts"][:, :PUSH_NARROW].contiguous(),
+              gpu["freqs"][:, :PUSH_NARROW].contiguous(), 16)
+    worst, bad = max_err(K.push_emit(*narrow), T.push_emit(*narrow))
+    rec["ms_narrow"] = cuda_ms(lambda: K.push_emit(*narrow), 50)
+    say(f"phase 3: push_emit at {PUSH_NARROW} lanes x 784 steps: "
+        f"mismatches {bad}, kernel {rec['ms_narrow']:.4f} ms, bound "
+        f"{16 * 784 * PUSH_NARROW / HBM_BYTES_PER_S * 1e3:.5f} ms (bytes)")
+    return bad_all + bad
 
 
 def record(name: str, worst: int, bad: int, ms: float, plain_ms: float,
@@ -1043,10 +1103,11 @@ def flash_bound(bh: int, bkv: int, sq: int, sk: int, d: int, itemsize: int,
                                  else "bytes")
 
 
-def check_flash(q, k, v, *, causal: bool, window: int, label: str,
-                library: bool) -> dict:
-    """The flash kernel against its plain version on (q, k, v) [BH, S, D]
-    on the card; returns the kernel's record."""
+def check_flash(q, k, v, *, causal: bool, window: int, label: str
+                ) -> dict:
+    """The flash kernel of q's route against its plain version on (q, k,
+    v) [BH, S, D] on the card, beside SDPA; returns the route's
+    record."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels.flash import kernel as FK
@@ -1055,8 +1116,8 @@ def check_flash(q, k, v, *, causal: bool, window: int, label: str,
     kw = dict(causal=causal, window=window)
     got = FK.flash_fwd(q, k, v, **kw)
     want, plain_ms = cuda_span(lambda: FT.flash_fwd(q, k, v, **kw))
-    name = "bfloat16" if q.dtype == torch.bfloat16 else "float32"
-    tol = FLASH_TOL[name]
+    name = f"flash_fwd/{FK.route(q.dtype)}"
+    tol = FLASH_TOL[str(q.dtype).removeprefix("torch.")]
     diff = (got.float() - want.float()).abs()
     worst = float(diff.max())
     # allclose with rtol = atol = tol: outputs of layer 0 reach tens, where
@@ -1067,46 +1128,50 @@ def check_flash(q, k, v, *, causal: bool, window: int, label: str,
     bkv, sk = k.shape[:2]
     bound_ms, bound_by = flash_bound(bh, bkv, sq, sk, d, q.element_size(),
                                      causal, window)
-    library_ms = None
-    if library:
-        # SDPA on [1, BH, S, D] with the key heads repeated (outside the
-        # timed call): the library column only.
-        g = bh // bkv
-        q4, k4, v4 = (t[None] for t in (q, k.repeat_interleave(g, 0),
-                                        v.repeat_interleave(g, 0)))
-        library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
-            q4, k4, v4, is_causal=causal), 10)
-    say(f"phase 14: flash_fwd {label} ({bh} heads on {bkv} key heads, "
-        f"{sq} x {sk}, D {d}, {name}, causal {causal}, window {window}): "
+    # SDPA on [1, BH, S, D] with the key heads repeated and, for a window,
+    # the mask built (both outside the timed call): the library column
+    # only.
+    g = bh // bkv
+    q4, k4, v4 = (t[None] for t in (q, k.repeat_interleave(g, 0),
+                                    v.repeat_interleave(g, 0)))
+    mask = None
+    if window > 0:
+        i = torch.arange(sq, device=q.device)[:, None]
+        j = torch.arange(sk, device=q.device)[None, :]
+        mask = (j > i - window) & ((j <= i) if causal else True)
+    library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
+        q4, k4, v4, attn_mask=mask, is_causal=causal and mask is None), 10)
+    say(f"phase 14: {name} {label} ({bh} heads on {bkv} key heads, "
+        f"{sq} x {sk}, D {d}, {q.dtype}, causal {causal}, window {window}): "
         f"max_abs_err {worst:.3g} at |out| up to "
         f"{float(want.float().abs().max()):.3g} (rtol = atol = {tol}: "
-        f"{ratio:.3g} of it), kernel "
-        f"{ms:.4f} ms, plain {plain_ms:.2f} ms, SDPA "
-        f"{'-' if library_ms is None else f'{library_ms:.4f}'} ms, bound "
-        f"{bound_ms:.5f} ms ({bound_by})")
+        f"{ratio:.3g} of it), kernel {ms:.4f} ms, plain {plain_ms:.2f} ms, "
+        f"SDPA {library_ms:.4f} ms, bound {bound_ms:.5f} ms ({bound_by})")
     if not ratio <= 1.0:
         raise SystemExit("phase 14: the flash kernel disagrees with its "
                          "plain version")
-    return {"name": "flash_fwd", "route": "cuda",
-            "source": SOURCES["flash_fwd"], "replaces": REPLACES["flash_fwd"],
-            "launches": 0, "max_abs_err": worst, "ms": ms,
-            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
-            "library_ms": library_ms}
+    return {"name": name, "route": "cuda", "source": SOURCES[name],
+            "replaces": REPLACES[name], "launches": 0, "max_abs_err": worst,
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "library_ms": library_ms}
 
 
-def lm_twin_check() -> None:
+def lm_twin_check() -> dict:
     """Phase 14's card against CPU twin: the reduced qwen2-0.5b's prefill
     logits of one 2100-token prompt (the blockwise branch: plain flash on
-    the CPU, the kernel on the card)."""
+    the CPU, the kernel of the compute dtype's route on the card); returns
+    the launch counts of each card prefill, by ``lm_prefill_<dtype>``."""
     import dataclasses
 
     import numpy as np
     import torch
     from repro_torch.configs import base
+    from repro_torch.kernels.flash import kernel as FK
     from repro_torch.models import transformer
 
     toks = torch.from_numpy(np.random.default_rng(1).integers(
         0, LM_TWIN_VOCAB, (1, LM_TWIN_PROMPT)).astype(np.int32))
+    counts = {}
     for compute, tol in LM_TWIN_TOL.items():
         cfg = dataclasses.replace(base.reduced(base.get(LM_ARCH)),
                                   vocab=LM_TWIN_VOCAB, compute_dtype=compute)
@@ -1117,8 +1182,12 @@ def lm_twin_check() -> None:
         cpu = transformer.prefill(params, cfg, {"tokens": toks},
                                   LM_TWIN_PROMPT)[0]
         t_cpu = time.perf_counter() - t0
-        card = transformer.prefill(on_card, cfg, {"tokens": toks.cuda()},
-                                   LM_TWIN_PROMPT)[0].cpu()
+        route = f"flash_fwd/{FK.route(getattr(torch, compute))}"
+        card, counts[f"lm_prefill_{compute}"] = counted(
+            f"phase 14 {compute} prefill", (route,),
+            lambda: transformer.prefill(on_card, cfg,
+                                        {"tokens": toks.cuda()},
+                                        LM_TWIN_PROMPT)[0].cpu())
         err = float((card.float() - cpu.float()).abs().max())
         say(f"phase 14: reduced {LM_ARCH} ({cfg.n_layers} layers, width "
             f"{cfg.d_model}, vocab {cfg.vocab}), {LM_TWIN_PROMPT}-token "
@@ -1128,12 +1197,13 @@ def lm_twin_check() -> None:
         if not err <= tol:
             raise SystemExit("phase 14: card and CPU twin prefill logits "
                              "disagree")
+    return counts
 
 
 def lm_serve_path(card: str):
     """Phase 14: the LM serving engine on qwen2-0.5b at full width;
-    returns (the flash records, launch counts of one generate, and the
-    traced pairs)."""
+    returns (the flash records, launch counts by path: one generate and
+    the reduced prefills, and the traced pairs)."""
     import numpy as np
     import torch
     from repro_torch import stream
@@ -1153,14 +1223,15 @@ def lm_serve_path(card: str):
 
     records = [check_flash(*lm_layer0_qkv(params, cfg, prompts["tokens"]),
                            causal=True, window=0, label="layer 0 of the "
-                           "prefill", library=True)]
+                           "prefill")]
     q, k, v = (torch.from_numpy(rng.normal(0, 1, (n, FLASH_RAGGED["s"],
                                                   cfg.head_dim))
                                 .astype(np.float32)).cuda()
                for n in (LM_BATCH * cfg.n_heads, LM_BATCH * cfg.n_kv_heads,
                          LM_BATCH * cfg.n_kv_heads))
-    check_flash(q, k, v, causal=True, window=FLASH_RAGGED["window"],
-                label="ragged", library=False)
+    records.append(check_flash(q, k, v, causal=True,
+                               window=FLASH_RAGGED["window"],
+                               label="ragged"))
     del q, k, v
 
     generate = lambda: eng.generate(prompts, LM_NEW)
@@ -1168,20 +1239,23 @@ def lm_serve_path(card: str):
                                         lambda: cuda_span(generate))
     K.reset_launches()
     second = generate()
-    again = K.LAUNCHES["flash_fwd"]
+    again = K.LAUNCHES["flash_fwd/wgmma"]
     same = torch.equal(first, second)
     say(f"phase 14: {LM_ARCH} at full width ({cfg.n_layers} layers, d "
         f"{cfg.d_model}, {cfg.n_heads}:{cfg.n_kv_heads} heads, d_ff "
         f"{cfg.d_ff}, vocab {cfg.vocab}; "
         f"{sum(t.numel() for t in _leaves(params)) / 1e6:.1f}M float32 "
         f"parameters): generate {LM_BATCH} x {LM_PROMPT} + {LM_NEW} in "
-        f"{gen_ms:.1f} ms; the same tokens twice: {same}; flash launches "
-        f"{launches['flash_fwd']} and {again} (want {cfg.n_layers} a "
-        f"prefill) on {card}")
-    if not same or launches["flash_fwd"] != cfg.n_layers \
-            or again != cfg.n_layers:
+        f"{gen_ms:.1f} ms; the same tokens twice: {same}; tensor-core "
+        f"flash launches {launches['flash_fwd/wgmma']} and {again} (want "
+        f"{cfg.n_layers} a prefill, of {launches['flash_fwd']} in all) on "
+        f"{card}")
+    if not same or launches["flash_fwd/wgmma"] != cfg.n_layers \
+            or again != cfg.n_layers \
+            or launches["flash_fwd"] != cfg.n_layers:
         raise SystemExit("phase 14: generate is not deterministic or did "
-                         "not attend through the flash kernel once a layer")
+                         "not attend through the tensor-core flash kernel "
+                         "once a layer")
 
     toks = torch.from_numpy(rng.integers(
         0, cfg.vocab, (LM_LANES, LM_TOKENS)).astype(np.int32)).cuda()
@@ -1213,7 +1287,7 @@ def lm_serve_path(card: str):
     if not (lossless and streamed and resumed):
         raise SystemExit("phase 14: the token streams did not decode "
                          "losslessly")
-    lm_twin_check()
+    by_path = {"lm_generate": launches, **lm_twin_check()}
     say(f"phase 14: wall {time.perf_counter() - t_phase:.1f} s")
     # One block's tokens: a trace of the whole 128 (some 840,000 launches)
     # takes the profiler minutes to sum.
@@ -1221,7 +1295,7 @@ def lm_serve_path(card: str):
         "phase14": (lambda: eng.compress(toks[:, :LM_BLOCK]),
                     lambda b: eng.decompress(b, LM_BLOCK)),
         "phase14_generate": (generate, lambda out: None)}
-    return records, launches, traced
+    return records, by_path, traced
 
 
 def _leaves(tree):
@@ -1381,8 +1455,9 @@ def main() -> int:
     stamp("phase 12")
     by_path["hvae_cli"] = hvae_cli_path(smi)
     stamp("phase 13")
-    flash_records, by_path["lm_generate"], lm_traced = lm_serve_path(smi)
+    flash_records, lm_counts, lm_traced = lm_serve_path(smi)
     records += flash_records
+    by_path.update(lm_counts)
     traced.update(lm_traced)
     stamp("phase 14")
     if "--profile" in sys.argv[1:]:

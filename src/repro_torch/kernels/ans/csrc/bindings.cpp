@@ -1,11 +1,13 @@
 // PyTorch bindings of the six ANS kernels, the posterior bucketize
-// (../../bucketize/csrc/bucketize.cu) and the flash-attention forward
-// (../../flash/csrc/flash_fwd.cu). Each entry point takes typed
-// tensors, checks device, dtype, shape and contiguity, allocates its
-// outputs, and launches on PyTorch's current stream of the tensors' card
-// (a device guard makes that card current). A failed check raises
-// ValueError, a failed launch RuntimeError. torch.utils.cpp_extension
-// builds this file together with the .cu sources (kernel.py).
+// (../../bucketize/csrc/bucketize.cu) and the flash-attention forward's two
+// routes (../../flash/csrc/flash_fwd_wgmma.cu, bfloat16 on the tensor
+// cores; ../../flash/csrc/flash_fwd.cu, float32 on the CUDA cores). Each
+// entry point takes typed tensors, checks device, dtype, shape and
+// contiguity, allocates its outputs, and launches on PyTorch's current
+// stream of the tensors' card (a device guard makes that card current).
+// A failed check raises ValueError, a failed launch RuntimeError.
+// torch.utils.cpp_extension builds this file together with the .cu sources
+// (kernel.py).
 #include <ATen/cuda/CUDAContext.h>
 #include <c10/cuda/CUDAGuard.h>
 #include <torch/extension.h>
@@ -46,29 +48,48 @@ cudaError_t launch_bucketize(const int32_t* slot, const float* mu,
                              int32_t* idx, int32_t* start, int32_t* freq,
                              int lanes, int lat_bits, int precision,
                              cudaStream_t stream);
-cudaError_t launch_flash_fwd(const void* q, const void* k, const void* v,
-                             void* out, int bh, int group, int sq, int sk,
-                             int d, int causal, int window, int bf16,
-                             cudaStream_t stream);
+cudaError_t launch_flash_fwd_simt(const void* q, const void* k,
+                                  const void* v, void* out, int bh,
+                                  int group, int sq, int sk, int d,
+                                  int causal, int window,
+                                  cudaStream_t stream);
+cudaError_t launch_flash_fwd_wgmma(const void* q, const void* k,
+                                   const void* v, void* out, int bh,
+                                   int group, int sq, int sk, int dp,
+                                   int head_dim, int causal, int window,
+                                   cudaStream_t stream);
 
 namespace {
 
 using torch::Tensor;
 
+// "[a, b, ...]". Messages here format numbers with std::to_string: a
+// check whose message streams an integer has been seen to crash the
+// process on the card's machine instead of raising.
+std::string shape_str(at::IntArrayRef shape) {
+  std::string s = "[";
+  for (size_t i = 0; i < shape.size(); ++i)
+    s += (i ? ", " : "") + std::to_string(shape[i]);
+  return s + "]";
+}
+
 // `t` lies on `device` as a contiguous `dtype` tensor of `shape`.
 void need(const Tensor& t, const char* what, torch::ScalarType dtype,
           at::IntArrayRef shape, const torch::Device& device) {
   TORCH_CHECK_VALUE(t.device() == device, "kernels.ans: ", what,
-                    " must be on ", device, ", got ", t.device());
+                    " must be on ", device.str(), ", got ",
+                    t.device().str());
   TORCH_CHECK_VALUE(
       t.scalar_type() == dtype && t.sizes() == shape && t.is_contiguous(),
-      "kernels.ans: ", what, " must be contiguous ", dtype, shape, ", got ",
-      t.scalar_type(), t.sizes(), " (contiguous=", t.is_contiguous(), ")");
+      "kernels.ans: ", what, " must be contiguous ", dtype, shape_str(shape),
+      ", got ", t.scalar_type(), shape_str(t.sizes()),
+      t.is_contiguous() ? "" : " (not contiguous)");
 }
 
 void dims(const Tensor& t, const char* what, int64_t n) {
-  TORCH_CHECK_VALUE(t.dim() == n, "kernels.ans: ", what, " must have ", n,
-                    " dimensions, got ", t.sizes());
+  TORCH_CHECK_VALUE(t.dim() == n, "kernels.ans: ", what, " must have ",
+                    std::to_string(n), " dimensions, got ",
+                    shape_str(t.sizes()));
 }
 
 void launched(cudaError_t e, const char* name) {
@@ -79,7 +100,7 @@ void launched(cudaError_t e, const char* name) {
 // The card of `head`, made current for the rest of the scope.
 torch::Device card(const Tensor& head) {
   TORCH_CHECK_VALUE(head.is_cuda(), "kernels.ans: the kernels take CUDA "
-                    "tensors, got head on ", head.device());
+                    "tensors, got head on ", head.device().str());
   return head.device();
 }
 
@@ -89,6 +110,12 @@ torch::Device card(const Tensor& head) {
 std::vector<Tensor> push_emit(const Tensor& head, const Tensor& starts,
                               const Tensor& freqs, int64_t precision) {
   const torch::Device dev = card(head);
+  // The kernel's reciprocal division is exact for freq <= 2^16
+  // (push.cu), and the reference allows no other precision
+  // (repro/core/ans.py:135).
+  TORCH_CHECK_VALUE(precision >= 1 && precision <= 16, "kernels.ans: "
+                    "push_emit precision must be in [1, 16], got ",
+                    std::to_string(precision));
   dims(starts, "starts", 2);
   const int64_t steps = starts.size(0), lanes = starts.size(1);
   need(head, "head", torch::kInt64, {lanes}, dev);
@@ -288,34 +315,68 @@ std::vector<Tensor> posterior_bucketize(const Tensor& slot, const Tensor& mu,
   return {idx, start, freq};
 }
 
-// q [BH, Sq, D]; k, v [BH / G, Sk, D]: contiguous, one card, all float32
-// or all bfloat16, D <= 128 -> out [BH, Sq, D].
+// Why the flash route `wgmma` cannot take q, k, v of head dim d (already
+// checked: dtype, shapes, card), or "" when it can.
+static std::string wgmma_refusal(const Tensor& q, const Tensor& k,
+                                 const Tensor& v, int64_t d, int64_t sk,
+                                 int64_t head_dim) {
+  if (d % 16 != 0)
+    return "route wgmma needs D a multiple of 16, got " + std::to_string(d);
+  if (head_dim < 1 || head_dim > d)
+    return "route wgmma needs 1 <= head_dim <= D, got " +
+           std::to_string(head_dim);
+  if (sk < 1) return "route wgmma needs a key";
+  for (const Tensor* t : {&q, &k, &v})
+    if (reinterpret_cast<uintptr_t>(t->data_ptr()) % 16 != 0)
+      return "route wgmma needs 16-byte aligned tensors";
+  return "";
+}
+
+// q [BH, Sq, D]; k, v [BH / G, Sk, D]: contiguous, one card -> out
+// [BH, Sq, D]. route "wgmma": bfloat16, D a multiple of 16 in [16, 128]
+// (the wrapper zero-pads), 16-byte aligned, Sk >= 1, and head_dim <= D the
+// true head dim that sets the scale; route "simt": float32, D in [1, 128],
+// head_dim == D. Raises on inputs the named route does not take.
 Tensor flash_fwd(const Tensor& q, const Tensor& k, const Tensor& v,
-                 bool causal, int64_t window) {
+                 bool causal, int64_t window, const std::string& route,
+                 int64_t head_dim) {
   const torch::Device dev = card(q);
   dims(q, "q", 3);
   dims(k, "k", 3);
   const int64_t bh = q.size(0), sq = q.size(1), d = q.size(2);
   const int64_t bkv = k.size(0), sk = k.size(1);
-  const auto dtype = q.scalar_type();
-  TORCH_CHECK_VALUE(
-      dtype == torch::kFloat32 || dtype == torch::kBFloat16,
-      "kernels.flash: q must be float32 or bfloat16, got ", dtype);
+  const bool wgmma = route == "wgmma";
+  TORCH_CHECK_VALUE(wgmma || route == "simt", "kernels.flash: route must "
+                    "be wgmma or simt, got ", route);
+  const auto dtype = wgmma ? torch::kBFloat16 : torch::kFloat32;
+  TORCH_CHECK_VALUE(q.scalar_type() == dtype, "kernels.flash: route ",
+                    route, " takes ", dtype, ", got ", q.scalar_type());
   TORCH_CHECK_VALUE(d >= 1 && d <= 128, "kernels.flash: head dim must be in "
-                    "[1, 128], got ", d);
-  TORCH_CHECK_VALUE(bkv >= 1 && bh % bkv == 0, "kernels.flash: ", bh,
-                    " query heads do not share ", bkv, " key heads evenly");
+                    "[1, 128], got ", std::to_string(d));
+  TORCH_CHECK_VALUE(bkv >= 1 && bh % bkv == 0, "kernels.flash: ",
+                    std::to_string(bh), " query heads do not share ",
+                    std::to_string(bkv), " key heads evenly");
   TORCH_CHECK_VALUE(window >= INT32_MIN && window <= INT32_MAX,
-                    "kernels.flash: window out of int32 range: ", window);
+                    "kernels.flash: window out of int32 range: ",
+                    std::to_string(window));
   need(q, "q", dtype, {bh, sq, d}, dev);
   need(k, "k", dtype, {bkv, sk, d}, dev);
   need(v, "v", dtype, {bkv, sk, d}, dev);
+  const std::string refusal =
+      wgmma ? wgmma_refusal(q, k, v, d, sk, head_dim)
+            : (head_dim == d ? "" : "route simt needs head_dim == D");
+  TORCH_CHECK_VALUE(refusal.empty(), "kernels.flash: ", refusal);
   const c10::cuda::CUDAGuard guard(dev);
   Tensor out = torch::empty_like(q);
-  launched(launch_flash_fwd(q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                            out.data_ptr(), bh, bh / bkv, sq, sk, d, causal,
-                            (int)window, dtype == torch::kBFloat16,
-                            at::cuda::getCurrentCUDAStream()),
+  const cudaStream_t stream = at::cuda::getCurrentCUDAStream();
+  launched(wgmma ? launch_flash_fwd_wgmma(
+                       q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                       out.data_ptr(), bh, bh / bkv, sq, sk, d, head_dim,
+                       causal, (int)window, stream)
+                 : launch_flash_fwd_simt(q.data_ptr(), k.data_ptr(),
+                                         v.data_ptr(), out.data_ptr(), bh,
+                                         bh / bkv, sq, sk, d, causal,
+                                         (int)window, stream),
            "flash_fwd");
   return out;
 }

@@ -1,11 +1,14 @@
 """The hand-written CUDA kernels of the ANS coder, of the posterior
 bucketize and of the flash-attention forward, and their loader.
 
-Eight kernels, one source each (``csrc/`` here, ``../bucketize/csrc/``,
+Nine kernels, one source each (``csrc/`` here, ``../bucketize/csrc/``,
 ``../flash/csrc/``). The coder's seven run one thread per lane with the
 step loop inside the thread (the Pallas ``fori_loop``):
 
-  * ``push_emit``         - ``repro/kernels/ans/kernel.py:35 _push_kernel``;
+  * ``push_emit``         - ``repro/kernels/ans/kernel.py:35 _push_kernel``
+                            (one chain warp a block of 32 lanes, fed from
+                            shared memory by warps that stage the inputs
+                            and divide ahead of it);
   * ``pop_slots``         - ``kernel.py:92 _peek_kernel``;
   * ``pop_table_emit``    - ``kernel.py:120 _pop_table_kernel`` (one static
                             table per lane);
@@ -22,10 +25,12 @@ step loop inside the thread (the Pallas ``fori_loop``):
                             its wrapper is ``kernels/bucketize/kernel.py``).
 
 and ``flash_fwd`` - ``repro/kernels/flash/kernel.py:28 _flash_fwd_kernel``
-- runs one block per tile of 128 queries of one head (its wrapper is
-``kernels/flash/kernel.py``).
+- in two routes that run one block per tile of 128 queries of one head
+(their wrapper is ``kernels/flash/kernel.py``, which picks the route by
+dtype): ``wgmma`` for bfloat16 on the tensor cores (TMA and wgmma), and
+``simt`` for float32 on the CUDA cores.
 
-Build: ``torch.utils.cpp_extension.load`` compiles the eight sources and
+Build: ``torch.utils.cpp_extension.load`` compiles the nine sources and
 ``csrc/bindings.cpp`` (typed ``torch::Tensor`` entry points that check
 their tensors, hold a device guard, allocate the outputs and launch on
 PyTorch's current stream) into one extension on first use, into
@@ -33,9 +38,9 @@ PyTorch's current stream) into one extension on first use, into
 parallel and rebuilds only what changed. The flags keep the float
 arithmetic IEEE and uncontracted (``--fmad=false -prec-div=true
 -ftz=false``, no fast math), which the bit-exact CDF needs; the flash
-kernel writes its products as explicit fma calls, so they hold for it
-too and one build serves all eight. Each wrapper
-here counts its launch in ``LAUNCHES``. A build or launch failure
+kernels write their fused products as explicit fma calls (the bfloat16
+one runs its products on the tensor cores), so one build serves all
+nine. Each wrapper here counts its launch in ``LAUNCHES``. A build or launch failure
 raises: nothing falls back to the plain versions (``twin.py``).
 """
 
@@ -63,20 +68,21 @@ SOURCES = {
     "pop_grid_emit": "ans/csrc/pop_grid.cu",
     "grid_starts": "ans/csrc/grid_starts.cu",
     "bucketize": "bucketize/csrc/bucketize.cu",
-    "flash_fwd": "flash/csrc/flash_fwd.cu",
+    "flash_fwd/wgmma": "flash/csrc/flash_fwd_wgmma.cu",
+    "flash_fwd/simt": "flash/csrc/flash_fwd.cu",
 }
 
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "--fmad=false",
               "-prec-div=true", "-ftz=false", "-O3"]
 
-#: launches per kernel (the grid pop and starts per kind) since
-#: ``reset_launches()``
+#: launches per kernel (the grid pop and starts per kind, the flash
+#: forward in total and per route) since ``reset_launches()``
 LAUNCHES: Dict[str, int] = {
     "push_emit": 0, "pop_slots": 0, "pop_table_emit": 0,
     "pop_dyntable_emit": 0, "pop_grid_emit/gaussian": 0,
     "pop_grid_emit/logistic": 0, "pop_grid_emit/uniform": 0,
     "grid_starts/gaussian": 0, "grid_starts/logistic": 0, "bucketize": 0,
-    "flash_fwd": 0}
+    "flash_fwd": 0, "flash_fwd/wgmma": 0, "flash_fwd/simt": 0}
 
 _EXT = None
 
@@ -103,16 +109,17 @@ def build():
     return _EXT
 
 
-def launch(counter: str, fn: str, head: torch.Tensor, *args):
+def launch(counter, fn: str, head: torch.Tensor, *args):
     """Call extension function ``fn`` on ``head`` (its first tensor, which
     sets the card and, when empty, means no launch) and ``args``; count
-    the launch under ``counter``."""
+    the launch under ``counter`` (a name, or a tuple of names)."""
     if head.device.type != "cuda":
         raise ValueError(f"kernels: the kernels take CUDA tensors, got "
                          f"{head.device}")
     out = getattr(build(), fn)(head, *args)
     if head.numel():
-        LAUNCHES[counter] += 1
+        for name in (counter,) if isinstance(counter, str) else counter:
+            LAUNCHES[name] += 1
     return out if isinstance(out, torch.Tensor) else tuple(out)
 
 

@@ -20,6 +20,7 @@ from __future__ import annotations
 
 from typing import Callable, Tuple
 
+import numpy as np
 import torch
 
 from repro_torch.core import ans
@@ -50,6 +51,40 @@ def push_emit(head: torch.Tensor, starts: torch.Tensor, freqs: torch.Tensor,
         h = torch.where(n, h >> 16, h)
         h = (((h // freq) << precision) + h % freq + starts[t]) & _M32
     return h, chunks, need
+
+
+def push_reciprocal(freq: np.ndarray) -> np.ndarray:
+    """The push kernel's reciprocal of each ``freq`` (``csrc/push.cu``
+    ``reciprocal``), step for step in uint32 words: ``ceil(2^64 / freq)``
+    as uint64 for ``2 <= freq <= 2^16``, 0 for ``freq`` 1."""
+    d = np.asarray(freq, np.uint64)
+    safe = np.maximum(d, np.uint64(2))
+    q1 = np.uint64(_M32) // safe
+    r1 = (np.uint64(_M32) - q1 * safe + np.uint64(1)) & np.uint64(_M32)
+    whole = r1 == safe
+    q1 = np.where(whole, q1 + np.uint64(1), q1)
+    r1 = np.where(whole, np.uint64(0), r1)
+    rr = r1 * r1
+    m = (q1 << np.uint64(32)) + r1 * q1 + rr // safe + \
+        (rr % safe != 0).astype(np.uint64)
+    return np.where(d <= 1, np.uint64(0), m)
+
+
+def divmod_by_reciprocal(x: np.ndarray, freq: np.ndarray
+                         ) -> Tuple[np.ndarray, np.ndarray]:
+    """``(x // freq, x % freq)`` for uint32 ``x`` and ``1 <= freq <=
+    2^16`` as the push kernel forms them, without a divide on the head's
+    chain: ``q = floor(x m / 2^64)`` from two 32-bit products with ``m =
+    push_reciprocal(freq)``, and ``r = x - q freq``. For ``freq`` 1 (``m =
+    0``) the kernel adds ``x << precision`` itself, the quotient ``x``.
+    Used by no path: the tests hold it to ``//`` and ``%``."""
+    x = np.asarray(x, np.uint64)
+    d = np.asarray(freq, np.uint64)
+    m = push_reciprocal(d)
+    lo = (x * (m & np.uint64(_M32))) >> np.uint64(32)
+    q = (x * (m >> np.uint64(32)) + lo) >> np.uint64(32)
+    q = np.where(d == 1, x, q)
+    return q, x - q * d
 
 
 def _read(h: torch.Tensor, r: torch.Tensor, feed: torch.Tensor

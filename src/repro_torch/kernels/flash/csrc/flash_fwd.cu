@@ -1,37 +1,39 @@
-// Flash-attention forward: the port of
+// Flash-attention forward, float32: the port of
 // src/repro/kernels/flash/kernel.py:28 _flash_fwd_kernel (its wrapper
-// flash_fwd :78, pallas_call :104).
+// flash_fwd :78, pallas_call :104) for float32 inputs. bfloat16 inputs take
+// the tensor-core kernel of flash_fwd_wgmma.cu; the tensor cores would run
+// float32 as TF32 and miss the 2e-5 tolerance, so this route stays on the
+// CUDA cores.
 //
 // What it computes is the Pallas kernel's function: for q [BH, Sq, D] and
-// k, v [BH / G, Sk, D] (all float32 or all bfloat16), query head h reads
-// key/value head h / G; scores are q . k * D^-0.5 summed in float32; a
-// key is valid when k < Sk, k <= q (causal) and k > q - window (window >
-// 0), and an invalid score is set to -1e30; the online softmax (m, l, acc)
-// is kept in float32, p is rounded to v's type before p . v, and the
-// output is acc / max(l, 1e-30) in q's type.
+// k, v [BH / G, Sk, D], query head h reads key/value head h / G; scores
+// are q . k * D^-0.5 summed in float32; a key is valid when k < Sk,
+// k <= q (causal) and k > q - window (window > 0), and an invalid score is
+// set to -1e30; the online softmax (m, l, acc) is kept in float32, and the
+// output is acc / max(l, 1e-30).
 //
 // Design. On the TPU the grid's key axis runs in order and carries
 // (m, l, acc) in VMEM from one step to the next. Here blocks run in no
 // order, so one block owns a tile of BLOCK_Q = 128 queries of one head,
 // one thread per query, and loops over the key tiles itself: only those
-// the causal and window limits leave (the twin, ../twin.py kv_tiles,
-// visits the same ones; skipping a tile that lies wholly after a query's
-// diagonal adds exp(-1e30 - m) = 0, and one wholly before its window is
-// wiped by corr = exp(-1e30 - m) = 0 once a valid key arrives, so the
-// result does not change). Each tile of BLOCK_K = 64 keys and values is
-// staged in shared memory as float32 by all threads; a thread keeps its
-// query row and its accumulator in registers (DMAX of each) and walks the
-// tile 16 keys at a time: 16 scores, one rescale of acc, 16 rows of p . v.
-// Every product is an explicit __fmaf_rn, so the extension's --fmad=false
-// does not split them; exp is expf and the final division IEEE.
+// the causal and window limits leave (within the twin's, ../twin.py
+// kv_tiles; skipping a tile that lies wholly after a query's diagonal adds
+// exp(-1e30 - m) = 0, and one wholly before its window is wiped by corr =
+// exp(-1e30 - m) = 0 once a valid key arrives, so the result does not
+// change). Each tile of BLOCK_K = 64 keys and values is staged in shared
+// memory by all threads; a thread keeps its query row and its accumulator
+// in registers (DMAX of each) and walks the tile 16 keys at a time: 16
+// scores, one rescale of acc, 16 rows of p . v. Every product is an
+// explicit __fmaf_rn, so the extension's --fmad=false does not split them;
+// exp is expf and the final division IEEE. float32 p is not rounded, so
+// updating every 16 keys agrees with the plain version's one update per
+// tile of 128 to float32 rounding.
 //
 // Bound: the 2 * 2 * Sq * Sk * D flops of q.k and p.v (half of it under a
-// causal mask) against the q, k, v, out bytes: at Sq = Sk = 4096, D = 64
-// it is bound by operations. This kernel runs them on the CUDA cores, one
-// FFMA at a time, with the key and value reads broadcast from shared
-// memory; the tensor cores (mma.sync or wgmma), TMA and warp
-// specialisation are later work. DMAX = 128 (mistral-nemo's head) keeps
-// 256 floats a thread and spills to local memory; it is right, not fast.
+// causal mask) against the q, k, v, out bytes. This kernel runs them on
+// the CUDA cores, one FFMA at a time, with the key and value reads
+// broadcast from shared memory. DMAX = 128 keeps 256 floats a thread and
+// spills to local memory; it is right, not fast.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -203,16 +205,14 @@ cudaError_t launch_dmax(const void* q, const void* k, const void* v,
 }  // namespace
 
 // Launcher, called by ../../ans/csrc/bindings.cpp (declared there with C++
-// linkage: a signature that drifts leaves an undefined symbol). d <= 128,
-// bh a multiple of group, checked by the binding.
-cudaError_t launch_flash_fwd(const void* q, const void* k, const void* v,
-                             void* out, int bh, int group, int sq, int sk,
-                             int d, int causal, int window, int bf16,
-                             cudaStream_t stream) {
+// linkage: a signature that drifts leaves an undefined symbol). float32,
+// d <= 128, bh a multiple of group, checked by the binding.
+cudaError_t launch_flash_fwd_simt(const void* q, const void* k,
+                                  const void* v, void* out, int bh,
+                                  int group, int sq, int sk, int d,
+                                  int causal, int window,
+                                  cudaStream_t stream) {
   if (bh == 0 || sq == 0) return cudaSuccess;
-  if (bf16)
-    return launch_dmax<__nv_bfloat16>(q, k, v, out, bh, group, sq, sk, d,
-                                      causal, window, stream);
   return launch_dmax<float>(q, k, v, out, bh, group, sq, sk, d, causal,
                             window, stream);
 }

@@ -1,20 +1,59 @@
-"""Wrapper of the hand-written flash-attention forward kernel,
-``csrc/flash_fwd.cu`` (the port of ``repro/kernels/flash/kernel.py:28
-_flash_fwd_kernel``).
+"""Wrapper of the hand-written flash-attention forward kernels (the port
+of ``repro/kernels/flash/kernel.py:28 _flash_fwd_kernel``), in two routes
+that the inputs' dtype picks (``route``):
 
-The source is built with the ANS kernels into one extension
-(``kernels/ans/kernel.py`` ``build``, bound in ``ans/csrc/bindings.cpp``;
-its products are explicit ``__fmaf_rn`` calls, so the extension's
-``--fmad=false`` costs it nothing) and the launch is counted in
-``kernels.ans.kernel.LAUNCHES["flash_fwd"]``. CUDA tensors only: on the
-CPU ``ops.flash_attention`` runs ``twin.py``.
+  * ``"wgmma"`` - bfloat16, ``csrc/flash_fwd_wgmma.cu``: the tensor cores
+    (wgmma) fed by TMA. Its tiles hold a multiple of 16 columns, so this
+    wrapper zero-pads q, k and v to the next multiple of 16 when D is not
+    one (zero columns add nothing to q . k or to the output's kept
+    columns) and passes the true D, which sets the scale;
+  * ``"simt"`` - float32, ``csrc/flash_fwd.cu``: the CUDA cores, since the
+    tensor cores would run float32 as TF32.
+
+Both sources are built with the ANS kernels into one extension
+(``kernels/ans/kernel.py`` ``build``, bound in ``ans/csrc/bindings.cpp``,
+which raises on inputs the named route does not take), and each launch
+is counted in ``kernels.ans.kernel.LAUNCHES["flash_fwd"]`` and in
+``LAUNCHES["flash_fwd/<route>"]``. CUDA tensors only: on the CPU
+``ops.flash_attention`` runs ``twin.py``.
 """
 
 from __future__ import annotations
 
+from typing import Tuple
+
 import torch
+import torch.nn.functional as F
 
 from repro_torch.kernels.ans import kernel as ans_kernel
+
+ROUTES = ("wgmma", "simt")
+
+
+def route(dtype: torch.dtype) -> str:
+    """The kernel that takes inputs of ``dtype``."""
+    if dtype == torch.bfloat16:
+        return "wgmma"
+    if dtype == torch.float32:
+        return "simt"
+    raise ValueError(f"kernels.flash: no route takes {dtype}")
+
+
+def pad_head_dim(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor
+                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """q, k, v with D zero-padded to the next multiple of 16 (unchanged
+    when D is one)."""
+    pad = -q.shape[-1] % 16
+    if not pad:
+        return q, k, v
+    return tuple(F.pad(t, (0, pad)) for t in (q, k, v))
+
+
+def _aligned(t: torch.Tensor) -> torch.Tensor:
+    """``t``, copied when TMA could not read it in place (contiguous and
+    16-byte aligned)."""
+    t = t.contiguous()
+    return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
 def flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -22,5 +61,10 @@ def flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     """q [BH, Sq, D]; k/v [BH // G, Sk, D], contiguous, all float32 or
     all bfloat16, D <= 128 -> out [BH, Sq, D] in q's dtype.
     ``window <= 0`` disables the window."""
-    return ans_kernel.launch("flash_fwd", "flash_fwd", q, k, v,
-                             bool(causal), int(window))
+    r = route(q.dtype)
+    d = q.shape[-1]
+    if r == "wgmma":
+        q, k, v = (_aligned(t) for t in pad_head_dim(q, k, v))
+    out = ans_kernel.launch(("flash_fwd", f"flash_fwd/{r}"), "flash_fwd", q,
+                            k, v, bool(causal), int(window), r, d)
+    return out[..., :d] if out.shape[-1] != d else out

@@ -1,18 +1,21 @@
 """The flash-attention forward in plain PyTorch, tile for tile as the
-CUDA kernel walks it: the kernel's CPU path and what it is held to on
+CUDA kernels walk it: the kernels' CPU path and what they are held to on
 the card.
 
 For each tile of ``BLOCK_Q`` queries it visits only the key tiles of
 ``BLOCK_K`` that the causal and window limits leave (``kv_tiles``), and
-updates the online softmax ``(m, l, acc)``, in float32, once every
-``SUB`` keys, as the kernel does: a bfloat16 ``p`` is rounded against the
-same running max on both sides, so the two agree to float32 rounding
-before the output's own rounding. Scores are
-``q . k * D^-0.5`` in float32, a masked score is -1e30 (not -inf, as the
-Pallas kernel sets it), ``p`` is cast to v's dtype before ``p . v``, and
-the output is ``acc / max(l, 1e-30)`` in q's dtype. GQA: query head
-``h`` of ``[BH, Sq, D]`` reads key/value head ``h // G`` of
-``[BH // G, Sk, D]``; nothing is repeated.
+updates the online softmax ``(m, l, acc)``, in float32, once a key tile
+(``SUB = BLOCK_K``), as the bfloat16 tensor-core kernel and the Pallas
+kernel at its default ``block_k`` do: a bfloat16 ``p`` is rounded against
+the same running max on all three. (The float32 kernel updates every 16
+keys; float32 ``p`` is not rounded, so that changes only the float32
+rounding.) Scores are ``q . k * D^-0.5`` summed in float32 (on the card,
+bfloat16 scores are summed by the tensor cores, as the kernel sums them)
+and held in log2 units; a masked score is -1e30 (not -inf, as the Pallas
+kernel sets it), ``p`` is cast to v's dtype before ``p . v``, and the
+output is ``acc / max(l, 1e-30)`` in q's dtype. GQA: query head ``h`` of
+``[BH, Sq, D]`` reads key/value head ``h // G`` of ``[BH // G, Sk, D]``;
+nothing is repeated.
 
 A row with no key left by its masks has no defined output (the kernel
 and this version average the values of the tiles they visited); causal
@@ -22,14 +25,15 @@ other case.
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
 BLOCK_Q = 128
-BLOCK_K = 64
-SUB = 16
+BLOCK_K = 128
+SUB = BLOCK_K
 NEG_INF = -1e30
+LOG2E = 1.4426950408889634
 
 
 def kv_tiles(q0: int, q1: int, sk: int, causal: bool, window: int
@@ -42,16 +46,35 @@ def kv_tiles(q0: int, q1: int, sk: int, causal: bool, window: int
     return start // BLOCK_K, -(-end // BLOCK_K)
 
 
+def _scores(qb: torch.Tensor, kb: torch.Tensor) -> torch.Tensor:
+    """q . k summed in float32: qb [H, G, Q, D], kb [H, K, D] -> [H, G,
+    Q, K]. bfloat16 on the card goes through the tensor cores (bf16
+    products, float32 sums), as the wgmma kernel and the Pallas kernel's
+    MXU dot form them: a float32 SGEMM sums in another order, and a p
+    one ulp off then rounds to another bfloat16."""
+    h, g, nq, d = qb.shape
+    if qb.is_cuda and qb.dtype == torch.bfloat16:
+        s = torch.bmm(qb.reshape(h, g * nq, d), kb.transpose(1, 2),
+                      out_dtype=torch.float32)
+        return s.reshape(h, g, nq, kb.shape[1])
+    return torch.einsum("hgqd,hkd->hgqk", qb.float(), kb.float())
+
+
 def flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-              causal: bool = True, window: int = 0) -> torch.Tensor:
+              causal: bool = True, window: int = 0,
+              head_dim: Optional[int] = None) -> torch.Tensor:
     """q [BH, Sq, D]; k/v [BH // G, Sk, D] (float32 or bfloat16) -> out
-    [BH, Sq, D] in q's dtype. ``window <= 0`` disables the window."""
+    [BH, Sq, D] in q's dtype. ``window <= 0`` disables the window.
+    ``head_dim`` (default D) sets the scale ``head_dim^-0.5``, as the
+    kernels take it for zero-padded heads. Scores are kept in log2 units
+    (times log2(e)) and exponentiated with exp2, as the bfloat16 kernel
+    does, so that its p rounds as this one's."""
     bh, sq, d = q.shape
     bkv, sk, _ = k.shape
     g = bh // bkv
-    scale = d ** -0.5
-    qg = q.reshape(bkv, g, sq, d).float()
-    kf, vf = k.float(), v.float()
+    scale = (head_dim or d) ** -0.5 * LOG2E
+    qg = q.reshape(bkv, g, sq, d)
+    vf = v.float()
     out = torch.empty((bkv, g, sq, d), dtype=q.dtype, device=q.device)
     for q0 in range(0, sq, BLOCK_Q):
         q1 = min(q0 + BLOCK_Q, sq)
@@ -64,7 +87,7 @@ def flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         for k0 in range(lo * BLOCK_K, min(hi * BLOCK_K, sk), SUB):
             k1 = min(k0 + SUB, sk)
             k_ids = torch.arange(k0, k1, device=q.device)[None, :]
-            s = torch.einsum("hgqd,hkd->hgqk", qb, kf[:, k0:k1]) * scale
+            s = _scores(qb, k[:, k0:k1]) * scale
             valid = torch.ones((q1 - q0, k1 - k0), dtype=torch.bool,
                                device=q.device)
             if causal:
@@ -73,8 +96,8 @@ def flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                 valid &= k_ids > q_ids - window
             s = torch.where(valid, s, torch.full_like(s, NEG_INF))
             m_new = torch.maximum(m, s.amax(dim=-1))
-            corr = torch.exp(m - m_new)
-            p = torch.exp(s - m_new[..., None])
+            corr = torch.exp2(m - m_new)
+            p = torch.exp2(s - m_new[..., None])
             l = l * corr + p.sum(dim=-1)
             pv = torch.einsum("hgqk,hkd->hgqd", p.to(v.dtype).float(),
                               vf[:, k0:k1])

@@ -308,12 +308,18 @@ def test_hvae_kernel_leaf_on_the_card(kernel):
     (2, 1, 96, 160, 32, False, 0, "float32"),
     (4, 4, 130, 130, 128, True, 0, "bfloat16"),    # mistral-nemo's head
     (2, 2, 100, 84, 8, True, 0, "float32"),
+    (14, 7, 4096, 4096, 64, True, 0, "bfloat16"),  # qwen2-0.5b's layer
+    (14, 7, 4096, 4096, 128, True, 0, "bfloat16"),
+    (6, 3, 300, 300, 40, True, 0, "bfloat16"),     # D padded to 48
+    (2, 1, 96, 160, 24, False, 0, "bfloat16"),     # D padded to 32
+    (6, 3, 700, 700, 64, True, 256, "bfloat16"),   # windowed
 ])
 def test_flash_kernel_matches_twin(kernel, bh, g, sq, sk, d, causal,
                                    window, dtype):
     """The flash forward against its plain version on the same inputs on
     the card (float32 sums in another order: 2e-5; bfloat16 outputs and
-    p: 2e-2, the Pallas kernel test's tolerances)."""
+    p: 2e-2, the Pallas kernel test's tolerances), through the route its
+    dtype picks, launched once."""
     from repro_torch.kernels.flash import kernel as fk
     from repro_torch.kernels.flash import ops as f_ops
     from repro_torch.kernels.flash import twin as f_twin
@@ -326,7 +332,10 @@ def test_flash_kernel_matches_twin(kernel, bh, g, sq, sk, d, causal,
     kernel.reset_launches()
     got = fk.flash_fwd(q, k, v, causal=causal, window=window)
     torch.cuda.synchronize()
+    route = "wgmma" if dtype == "bfloat16" else "simt"
     assert kernel.LAUNCHES["flash_fwd"] == 1
+    assert kernel.LAUNCHES[f"flash_fwd/{route}"] == 1
+    assert sum(kernel.LAUNCHES[f"flash_fwd/{r}"] for r in fk.ROUTES) == 1
     want = f_twin.flash_fwd(q, k, v, causal=causal, window=window)
     assert got.dtype == dt and got.shape == q.shape
     tol = 2e-2 if dtype == "bfloat16" else 2e-5
@@ -335,3 +344,50 @@ def test_flash_kernel_matches_twin(kernel, bh, g, sq, sk, d, causal,
                                atol=tol)
     with pytest.raises(RuntimeError, match="only the kernel runs"):
         f_ops.flash_attention(q[None], k[None], v[None], backend="torch")
+
+
+@pytest.mark.cuda
+def test_flash_binding_refuses_what_a_route_does_not_take(kernel):
+    q = torch.zeros((2, 64, 64), device="cuda")
+    with pytest.raises(ValueError, match="route wgmma takes"):
+        kernel.build().flash_fwd(q, q, q, True, 0, "wgmma", 64)
+    b = q.to(torch.bfloat16)
+    with pytest.raises(ValueError, match="route simt takes"):
+        kernel.build().flash_fwd(b, b, b, True, 0, "simt", 64)
+    b40 = torch.zeros((2, 64, 40), device="cuda", dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="multiple of 16"):
+        kernel.build().flash_fwd(b40, b40, b40, True, 0, "wgmma", 40)
+
+
+def _adversarial_push(lanes, steps, precision, seed):
+    """Pushes at the edges of the kernel's reciprocal division: freq 1
+    and 2^precision (where freq << (32 - precision) wraps to 0) among
+    random ones, starts with start + freq <= 2^precision, and heads
+    within 2^12 of 2^32."""
+    rng = np.random.default_rng(seed)
+    total = 1 << precision
+    pick = rng.random((steps, lanes))
+    freq = np.where(pick < 0.2, 1, np.where(
+        pick < 0.4, total, rng.integers(1, total + 1, (steps, lanes))))
+    start = rng.integers(0, total - freq + 1)
+    head = (1 << 32) - 1 - rng.integers(0, 1 << 12, lanes)
+    i32 = lambda a: torch.from_numpy(np.ascontiguousarray(a, np.int32))
+    return torch.from_numpy(head.astype(np.int64)), i32(start), i32(freq)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("precision", [12, 16])
+@pytest.mark.parametrize("lanes,steps", [(1, 1), (33, 300), (4096, 784)])
+def test_push_kernel_matches_twin_on_adversarial_inputs(kernel, lanes,
+                                                        steps, precision):
+    """Bit for bit, across tiles of the staged ring and lanes past a
+    block's 32."""
+    head, start, freq = _adversarial_push(lanes, steps, precision,
+                                          lanes + steps + precision)
+    got = kernel.push_emit(head.cuda(), start.cuda(), freq.cuda(),
+                           precision)
+    want = twin.push_emit(head, start, freq, precision)
+    for a, b in zip(got, want):
+        assert torch.equal(a.cpu().to(torch.int64), b.to(torch.int64))
+    with pytest.raises(ValueError, match="precision must be in"):
+        kernel.push_emit(head.cuda(), start.cuda(), freq.cuda(), 17)

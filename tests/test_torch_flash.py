@@ -6,9 +6,14 @@ held to on the card) and the exact-SDPA oracle (``ref.py``) are held to
 the Pallas kernel in interpret mode and to its oracle at
 ``tests/test_kernels.py``'s five shapes, with that test's tolerances
 (float32 2e-5, bfloat16 2e-2: the float32 sums run in another order).
-The model-layout wrapper and ``sdpa_blockwise`` are held to the
-reference's in the GQA layout. The kernel itself runs only on the card
-(``tests/test_torch_cuda.py``, ``chip_smoke.py`` phase 14).
+The plain version is also held to the Pallas kernel at the kernels' own
+tiles (``twin.BLOCK_Q``, ``twin.BLOCK_K``: 128 keys a softmax update, so
+bfloat16 ``p`` is rounded against the same maxima) over several key
+tiles, and the wrapper's zero-padding of the head dim (the tensor-core
+route's) against the oracle. The model-layout wrapper and
+``sdpa_blockwise`` are held to the reference's in the GQA layout. The
+kernels themselves run only on the card (``tests/test_torch_cuda.py``,
+``chip_smoke.py`` phase 14).
 """
 
 import numpy as np
@@ -23,6 +28,7 @@ from repro.kernels.flash import ops as ref_ops  # noqa: E402
 from repro.kernels.flash import ref as ref_ref  # noqa: E402
 from repro.models import attention as ref_attention  # noqa: E402
 from repro_torch.kernels import dispatch  # noqa: E402
+from repro_torch.kernels.flash import kernel as flash_kernel  # noqa: E402
 from repro_torch.kernels.flash import ops, ref, twin  # noqa: E402
 from repro_torch.models import attention  # noqa: E402
 
@@ -68,6 +74,49 @@ def test_twin_and_ref_match_the_pallas_kernel_and_its_oracle(
     tol = _tol(dtype)
     for a, b in ((got, want), (exact, oracle), (got, oracle)):
         np.testing.assert_allclose(_f32(a), _f32(b), rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("causal,window", [(True, 0), (True, 100),
+                                           (False, 0)])
+def test_twin_matches_the_pallas_kernel_at_the_kernels_tiles(
+        causal, window, dtype):
+    bh, s, d = 2, 300, 64
+    (qj, q), (kj, k), (vj, v) = (_pair((bh, s, d), dtype, 70 + i)
+                                 for i in range(3))
+    want = ref_kernel.flash_fwd(qj, kj, vj, causal=causal, window=window,
+                                block_q=twin.BLOCK_Q, block_k=twin.BLOCK_K,
+                                interpret=True)
+    got = twin.flash_fwd(q, k, v, causal=causal, window=window)
+    tol = _tol(dtype)
+    np.testing.assert_allclose(_f32(got), _f32(want), rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("d", [8, 24, 40])
+def test_zero_padded_head_dim_matches_the_oracle(d, dtype):
+    """The tensor-core route's tiles take D in multiples of 16: the
+    wrapper pads q, k, v with zero columns and passes the true D for the
+    scale, which leaves the kept columns' function unchanged."""
+    bh, s = 3, 150
+    q, k, v = (_pair((bh, s, d), dtype, 90 + d + i)[1] for i in range(3))
+    qp, kp, vp = flash_kernel.pad_head_dim(q, k, v)
+    assert qp.shape[-1] == kp.shape[-1] == vp.shape[-1] == -(-d // 16) * 16
+    assert torch.equal(qp[..., :d], q) and not qp[..., d:].any()
+    got = twin.flash_fwd(qp, kp, vp, causal=True, window=40,
+                         head_dim=d)[..., :d]
+    want = ref.flash_ref(q, k, v, causal=True, window=40)
+    tol = _tol(dtype)
+    np.testing.assert_allclose(_f32(got), _f32(want), rtol=tol, atol=tol)
+
+
+def test_the_dtype_picks_the_kernel_route():
+    assert flash_kernel.route(torch.bfloat16) == "wgmma"
+    assert flash_kernel.route(torch.float32) == "simt"
+    with pytest.raises(ValueError, match="no route"):
+        flash_kernel.route(torch.float16)
+    q = torch.zeros((1, 4, 32))
+    assert flash_kernel.pad_head_dim(q, q, q)[0] is q
 
 
 @pytest.mark.parametrize("backend", ["torch", "ref"])

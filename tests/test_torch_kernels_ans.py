@@ -3,8 +3,11 @@
 On the CPU: ``twin.py`` and the ``ref.py`` oracle against
 ``repro.kernels.ans.xla`` and the Pallas kernels in interpret mode, at
 lanes 1, 3, 128 and 130 and precisions 12 and 16; the dispatched ops
-against ``repro.kernels.ans.ops``. The CUDA kernels themselves are held to
-``twin.py`` on the card by ``tests/test_torch_cuda.py``.
+against ``repro.kernels.ans.ops``; the push kernel's division by
+reciprocal (``twin.divmod_by_reciprocal``) against ``//`` and ``%`` over
+every freq of precision 16 at the heads' edges and on a million random
+pairs. The CUDA kernels themselves are held to ``twin.py`` on the card by
+``tests/test_torch_cuda.py``.
 """
 
 import numpy as np
@@ -262,3 +265,37 @@ def test_each_package_reads_only_its_own_backend_variable(monkeypatch):
                           jnp.asarray(d["freqs"]), 16)
     port = ops.push_many(port, _t(d["starts"]), _t(d["freqs"]), 16)
     _same_stack(port, r)
+
+
+def _divmod_edges(freq):
+    """Heads at the edges for each freq: 0, freq - 1, freq, the largest
+    head that reaches the division without renormalizing at precision 16
+    (freq << 16, wrapped, minus 1) and 2^32 - 1."""
+    m32 = np.uint64(0xFFFFFFFF)
+    below = ((freq << np.uint64(16)) - np.uint64(1)) & m32
+    return [np.zeros_like(freq), freq - np.uint64(1), freq, below,
+            np.full_like(freq, m32)]
+
+
+@pytest.mark.parametrize("edge", range(5))
+def test_push_reciprocal_divmod_is_exact_for_every_freq(edge):
+    freq = np.arange(1, (1 << 16) + 1, dtype=np.uint64)
+    x = _divmod_edges(freq)[edge]
+    q, r = twin.divmod_by_reciprocal(x, freq)
+    np.testing.assert_array_equal(q, x // freq)
+    np.testing.assert_array_equal(r, x % freq)
+
+
+def test_push_reciprocal_divmod_is_exact_on_random_pairs():
+    rng = np.random.default_rng(19)
+    x = rng.integers(0, 1 << 32, 10 ** 6, dtype=np.uint64)
+    freq = rng.integers(1, (1 << 16) + 1, 10 ** 6, dtype=np.uint64)
+    q, r = twin.divmod_by_reciprocal(x, freq)
+    np.testing.assert_array_equal(q, x // freq)
+    np.testing.assert_array_equal(r, x % freq)
+
+
+def test_push_reciprocal_is_the_ceiling_of_two_to_the_64_over_freq():
+    freq = np.array([1, 2, 3, 255, 4096, 65521, 65535, 65536], np.uint64)
+    want = [0] + [-(-(1 << 64) // int(f)) for f in freq[1:]]
+    assert [int(m) for m in twin.push_reciprocal(freq)] == want
