@@ -17,7 +17,12 @@ Phases, each on a line of its own; any failure exits non-zero:
      of its division by reciprocal (freq 1 and 2^precision, heads near
      2^32, precisions 16 and 12), and timed at 32 lanes; the posterior
      bucketize also at 4097 lanes and lat_bits 12, with slots at 0 and
-     2^16 - 1, mu in [-8, 8] and sigma in [1e-3, 30];
+     2^16 - 1, mu in [-8, 8] and sigma in [1e-3, 30]; the gaussian and
+     logistic grid pops on such inputs (heads near 2^32 besides) at 1, 3,
+     32, 130, 4096 and 4101 lanes (both group widths), and timed on
+     either side of the lane count where the launcher narrows the group;
+     the dyntable pop at A+1 = 2, 3, 13 and 257; both pops timed at 32
+     lanes and phase 13's step counts;
   4. the committed golden blobs ``tests/golden/bbx1_vae_fixedpoint.bin``,
      ``bbx2_stream.bin`` and ``bbx3_corpus.bin`` re-encoded on the card
      hex for hex and decoded losslessly;
@@ -84,7 +89,12 @@ Phases, each on a line of its own; any failure exits non-zero:
      width (vocab 300) the card's prefill logits of a 2100-token prompt
      against the CPU twin's (the port on the CPU, plain flash): float32
      compute within 1e-3 (through the float32 route), bfloat16 within 0.1
-     (the tensor-core route), each prefill's launches counted.
+     (the tensor-core route), each prefill's launches counted. Then
+     stablelm-12b at full width (40 layers, d 5120, 32:8 heads of 160,
+     bfloat16 weights from a CUDA generator): both flash routes at D 160
+     against their plain version beside SDPA (layer 0 of its 2 x 4096
+     prefill; a ragged windowed float32 case), and ``generate`` twice:
+     the same tokens, exactly 40 tensor-core flash launches a prefill.
 
 Each path (phases 5-14) runs with the kernel launch counts set to 0 just
 before it and read just after, and fails if one of its kernels was not
@@ -146,6 +156,19 @@ BK_CASES = ((LANES, 10), (LANES + 1, 12))
 # its time is phase 13's width (one block).
 PUSH_EDGES = ((LANES, 784, 16), (LANES + 5, 300, 12))
 PUSH_NARROW = 32
+# The grid pops (gaussian, logistic) on edge inputs - heads near 2^32,
+# first slots 0 and 2^16 - 1, mu over [-8, 8], sigma over [1e-3, 30] -
+# at these lane counts (32 threads a lane up to 1024 gaussian or 512
+# logistic lanes, 16 above: GROUP_EDGES times each kind on either side);
+# the dyntable pop at these
+# table widths (the Bernoulli pixels' 3 and a 256-symbol Categorical's
+# 257) over steps off its staging tile. Both pops are timed at 32 lanes
+# and phase 13's step counts: the 392 latents of hvae-small2's first
+# level, the 784 pixels.
+POP_LANES = (1, 3, 32, 130, LANES, LANES + 5)
+GROUP_EDGES = {"gaussian": (1024, 1025), "logistic": (512, 513)}
+POP_NARROW, GRID_NARROW_STEPS = 32, 392
+DYN_A1, DYN_STEPS = (2, 3, 13, 257), 70
 # Phases 11 and 12: hvae-base2 widths on 28 x 28 digits.
 HV_LANES, HV_CHAIN = 1024, 4
 HVF_LANES, HVF_CHAIN = 256, 2
@@ -184,6 +207,12 @@ FLASH_TOL = {"float32": 2e-5, "bfloat16": 2e-2}
 # (0.1, the reference's own prefill tolerance).
 LM_TWIN_TOL = {"float32": 1e-3, "bfloat16": 0.1}
 LM_KERNELS = ("flash_fwd/wgmma",)
+# Phase 14's second model: stablelm-12b (40 layers, d 5120, 32:8 heads,
+# head dim 160, d_ff 13824, vocab 100,352) at full width with bfloat16
+# weights (24 GB), the largest head dim a registered config has; its
+# prefill attends through the tensor-core flash kernel's 192-column
+# instance. The float32 route's D-160 case is ragged and windowed.
+SLM_ARCH = "stablelm-12b"
 
 VAE_KERNELS = ("push_emit", "pop_dyntable_emit", "pop_grid_emit/gaussian",
                "pop_grid_emit/uniform", "grid_starts/gaussian")
@@ -415,6 +444,7 @@ def check_kernels():
         failed |= bad != 0
     failed |= check_push(next(r for r in records
                               if r["name"] == "push_emit"), gpu) != 0
+    failed |= check_pops({r["name"]: r for r in records}, gpu, e_gpu) != 0
     rec, bad = check_bucketize()
     records.append(rec)
     if failed or bad:
@@ -466,6 +496,117 @@ def check_push(rec: dict, gpu: dict) -> int:
         f"mismatches {bad}, kernel {rec['ms_narrow']:.4f} ms, bound "
         f"{16 * 784 * PUSH_NARROW / HBM_BYTES_PER_S * 1e3:.5f} ms (bytes)")
     return bad_all + bad
+
+
+def grid_inputs(lanes: int, steps: int, seed: int, edges: bool):
+    """Grid-pop inputs (head, mu, sigma, feed) on the card: phase 3's
+    draws (mu ~ N(0, 1.5), sigma log-uniform over [e^-4, e]) or, with
+    ``edges``, heads near 2^32 and heads whose first slot is 0 or
+    2^16 - 1, mu over [-8, 8] and sigma log-uniform over [1e-3, 30],
+    each range's ends included."""
+    import numpy as np
+    import torch
+    rng = np.random.default_rng(seed)
+    head = rng.integers(1 << 16, 1 << 32, lanes, dtype=np.int64)
+    if edges:
+        head[::4] = (1 << 32) - 1 - rng.integers(0, 1 << 12,
+                                                 len(head[::4]))
+        head[1::4] &= ~0xFFFF
+        head[2::4] |= 0xFFFF
+        mu = rng.uniform(-8.0, 8.0, (steps, lanes))
+        mu[0, :2] = (-8.0, 8.0)[:lanes]
+        sigma = np.exp(rng.uniform(np.log(1e-3), np.log(30.0),
+                                   (steps, lanes)))
+        sigma[1, :2] = (1e-3, 30.0)[:lanes]
+    else:
+        mu = rng.normal(0.0, 1.5, (steps, lanes))
+        sigma = np.exp(rng.uniform(-4.0, 1.0, (steps, lanes)))
+    feed = rng.integers(0, 1 << 16, (steps, lanes))
+    f32 = lambda a: torch.from_numpy(a.astype(np.float32)).cuda()
+    return (torch.from_numpy(head).cuda(), f32(mu), f32(sigma),
+            torch.from_numpy(feed.astype(np.int32)).cuda())
+
+
+def dyn_inputs(lanes: int, steps: int, a1: int, seed: int):
+    """Dyntable-pop inputs (head, tables, feed) on the card: heads near
+    2^32 among random ones, non-decreasing tables 0 .. 2^16 with symbols
+    of zero frequency."""
+    import numpy as np
+    import torch
+    rng = np.random.default_rng(seed)
+    head = rng.integers(1 << 16, 1 << 32, lanes, dtype=np.int64)
+    head[::3] = (1 << 32) - 1 - rng.integers(0, 1 << 12, len(head[::3]))
+    w = rng.integers(1, 100, (steps, lanes, a1 - 1)) * \
+        (rng.random((steps, lanes, a1 - 1)) > 0.2)
+    w[..., 0] += 1
+    cdf = np.floor(np.cumsum(w, -1) / w.sum(-1, keepdims=True) * (1 << 16))
+    tables = np.concatenate([np.zeros((steps, lanes, 1)), cdf], -1)
+    tables[..., -1] = 1 << 16
+    feed = rng.integers(0, 1 << 16, (steps, lanes))
+    i32 = lambda a: torch.from_numpy(a.astype(np.int32)).cuda()
+    return torch.from_numpy(head).cuda(), i32(tables), i32(feed)
+
+
+def check_pops(recs: dict, gpu: dict, e) -> int:
+    """Phase 3's grid and dyntable pops beyond their records: the grid
+    pops on edge inputs at ``POP_LANES``, bit for bit, and each kind's
+    time at 40 steps on either side of its group's threshold
+    (``GROUP_EDGES``, kept as ``ms_by_lanes``); the dyntable pop at the
+    widths of ``DYN_A1``; both timed at ``POP_NARROW`` lanes
+    (``ms_narrow``). Returns the mismatch count."""
+    from repro_torch.kernels.ans import kernel as K
+    from repro_torch.kernels.ans import twin as T
+
+    bad_all = 0
+    for kind in ("gaussian", "logistic"):
+        for lanes in POP_LANES:
+            args = grid_inputs(lanes, 40, lanes, edges=True)
+            bad = max_err(K.pop_grid_emit(*args, e, kind, 10, 16),
+                          T.pop_grid_emit(*args, e, kind, 10, 16))[1]
+            say(f"phase 3: pop_grid_emit/{kind} edges ({lanes} lanes x 40 "
+                f"steps): mismatches {bad}")
+            bad_all += bad
+        rec = recs[f"pop_grid_emit/{kind}"]
+        rec["ms_by_lanes"] = {}
+        for lanes in GROUP_EDGES[kind]:
+            args = grid_inputs(lanes, 40, lanes, edges=False)
+            call = lambda: K.pop_grid_emit(*args, e, kind, 10, 16)
+            bad = max_err(call(), T.pop_grid_emit(*args, e, kind, 10,
+                                                  16))[1]
+            bad_all += bad
+            rec["ms_by_lanes"][lanes] = cuda_ms(call, 20)
+            say(f"phase 3: pop_grid_emit/{kind} at {lanes} lanes x 40 "
+                f"steps: mismatches {bad}, kernel "
+                f"{rec['ms_by_lanes'][lanes]:.4f} ms")
+    narrow = grid_inputs(POP_NARROW, GRID_NARROW_STEPS, 13, edges=False)
+    rec = recs["pop_grid_emit/gaussian"]
+    bad = max_err(K.pop_grid_emit(*narrow, e, "gaussian", 10, 16),
+                  T.pop_grid_emit(*narrow, e, "gaussian", 10, 16))[1]
+    bad_all += bad
+    rec["ms_narrow"] = cuda_ms(lambda: K.pop_grid_emit(
+        *narrow, e, "gaussian", 10, 16), 20)
+    say(f"phase 3: pop_grid_emit/gaussian at {POP_NARROW} lanes x "
+        f"{GRID_NARROW_STEPS} steps: mismatches {bad}, kernel "
+        f"{rec['ms_narrow']:.4f} ms")
+    for a1 in DYN_A1:
+        for lanes in (POP_NARROW + 1, LANES + 5):
+            args = dyn_inputs(lanes, DYN_STEPS, a1, lanes + a1)
+            worst, bad = max_err(K.pop_dyntable_emit(*args, 16),
+                                 T.pop_dyntable_emit(*args, 16))
+            say(f"phase 3: pop_dyntable_emit A+1 = {a1} ({lanes} lanes x "
+                f"{DYN_STEPS} steps): mismatches {bad}")
+            bad_all += bad
+    narrow = (gpu["head"][:POP_NARROW].contiguous(),
+              gpu["tables"][:, :POP_NARROW].contiguous(),
+              gpu["feed_p"][:, :POP_NARROW].contiguous(), 16)
+    worst, bad = max_err(K.pop_dyntable_emit(*narrow),
+                         T.pop_dyntable_emit(*narrow))
+    bad_all += bad
+    rec = recs["pop_dyntable_emit"]
+    rec["ms_narrow"] = cuda_ms(lambda: K.pop_dyntable_emit(*narrow), 20)
+    say(f"phase 3: pop_dyntable_emit at {POP_NARROW} lanes x 784 steps: "
+        f"mismatches {bad}, kernel {rec['ms_narrow']:.4f} ms")
+    return bad_all
 
 
 def record(name: str, worst: int, bad: int, ms: float, plain_ms: float,
@@ -1298,6 +1439,74 @@ def lm_serve_path(card: str):
     return records, by_path, traced
 
 
+def stablelm_path(card: str, records: list) -> dict:
+    """Phase 14, stablelm-12b: the D-160 flash routes against their plain
+    version beside SDPA (kept in the routes' records under ``d160``),
+    then ``generate`` twice; returns the launch counts of one generate."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+    from repro_torch.configs import base
+    from repro_torch.kernels.ans import kernel as K
+    from repro_torch.models import transformer
+    from repro_torch.serve import Engine
+
+    t_phase = time.perf_counter()
+    cfg = dataclasses.replace(base.get(SLM_ARCH), param_dtype="bfloat16")
+    torch.cuda.reset_peak_memory_stats()
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    params = transformer.init(cfg, gen, device="cuda")
+    eng = Engine(params, cfg, max_len=LM_PROMPT + LM_NEW, device="cuda")
+    rng = np.random.default_rng(2)
+    prompts = {"tokens": torch.from_numpy(rng.integers(
+        0, cfg.vocab, (LM_BATCH, LM_PROMPT)).astype(np.int32)).cuda()}
+    by_name = {r["name"]: r for r in records}
+    d160 = check_flash(*lm_layer0_qkv(params, cfg, prompts["tokens"]),
+                       causal=True, window=0,
+                       label=f"{SLM_ARCH} layer 0 of the prefill")
+    say(f"phase 14: {SLM_ARCH} flash D {cfg.head_dim}: kernel / SDPA "
+        f"{d160['ms'] / d160['library_ms']:.3f}")
+    q, k, v = (torch.from_numpy(rng.normal(0, 1, (n, FLASH_RAGGED["s"],
+                                                  cfg.head_dim))
+                                .astype(np.float32)).cuda()
+               for n in (cfg.n_heads, cfg.n_kv_heads, cfg.n_kv_heads))
+    d160_f32 = check_flash(q, k, v, causal=True,
+                           window=FLASH_RAGGED["window"],
+                           label=f"ragged D {cfg.head_dim}")
+    del q, k, v
+    for rec in (d160, d160_f32):
+        by_name[rec["name"]]["d160"] = {
+            key: rec[key] for key in ("max_abs_err", "ms", "plain_ms",
+                                      "bound_ms", "bound_by", "library_ms")}
+
+    generate = lambda: eng.generate(prompts, LM_NEW)
+    (first, gen_ms), launches = counted(f"phase 14 {SLM_ARCH}", LM_KERNELS,
+                                        lambda: cuda_span(generate))
+    K.reset_launches()
+    second = generate()
+    again = K.LAUNCHES["flash_fwd/wgmma"]
+    same = torch.equal(first, second)
+    n_params = sum(t.numel() for t in _leaves(params))
+    say(f"phase 14: {SLM_ARCH} at full width ({cfg.n_layers} layers, d "
+        f"{cfg.d_model}, {cfg.n_heads}:{cfg.n_kv_heads} heads of "
+        f"{cfg.head_dim}, d_ff {cfg.d_ff}, vocab {cfg.vocab}; "
+        f"{n_params / 1e9:.2f}B bfloat16 parameters): generate {LM_BATCH} "
+        f"x {LM_PROMPT} + {LM_NEW} in {gen_ms:.1f} ms; the same tokens "
+        f"twice: {same}; tensor-core flash launches "
+        f"{launches['flash_fwd/wgmma']} and {again} (want {cfg.n_layers} "
+        f"a prefill, of {launches['flash_fwd']} in all); peak memory "
+        f"{torch.cuda.max_memory_allocated() / 2 ** 30:.1f} GiB on {card}")
+    if not same or launches["flash_fwd/wgmma"] != cfg.n_layers \
+            or again != cfg.n_layers \
+            or launches["flash_fwd"] != cfg.n_layers:
+        raise SystemExit(f"phase 14: {SLM_ARCH} generate is not "
+                         "deterministic or did not attend through the "
+                         "tensor-core flash kernel once a layer")
+    say(f"phase 14: {SLM_ARCH} wall {time.perf_counter() - t_phase:.1f} s")
+    return launches
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         return [x for v in tree.values() for x in _leaves(v)]
@@ -1459,6 +1668,7 @@ def main() -> int:
     records += flash_records
     by_path.update(lm_counts)
     traced.update(lm_traced)
+    by_path["lm_generate_stablelm"] = stablelm_path(smi, records)
     stamp("phase 14")
     if "--profile" in sys.argv[1:]:
         syncs = {label: profile(label, encode, decode)

@@ -332,10 +332,14 @@ static std::string wgmma_refusal(const Tensor& q, const Tensor& k,
   return "";
 }
 
+// The largest head dim either flash route takes: 160 is the largest that
+// a config of the reference registers (stablelm-12b).
+constexpr int64_t kFlashMaxD = 192;
+
 // q [BH, Sq, D]; k, v [BH / G, Sk, D]: contiguous, one card -> out
-// [BH, Sq, D]. route "wgmma": bfloat16, D a multiple of 16 in [16, 128]
+// [BH, Sq, D]. route "wgmma": bfloat16, D a multiple of 16 in [16, 192]
 // (the wrapper zero-pads), 16-byte aligned, Sk >= 1, and head_dim <= D the
-// true head dim that sets the scale; route "simt": float32, D in [1, 128],
+// true head dim that sets the scale; route "simt": float32, D in [1, 192],
 // head_dim == D. Raises on inputs the named route does not take.
 Tensor flash_fwd(const Tensor& q, const Tensor& k, const Tensor& v,
                  bool causal, int64_t window, const std::string& route,
@@ -351,8 +355,9 @@ Tensor flash_fwd(const Tensor& q, const Tensor& k, const Tensor& v,
   const auto dtype = wgmma ? torch::kBFloat16 : torch::kFloat32;
   TORCH_CHECK_VALUE(q.scalar_type() == dtype, "kernels.flash: route ",
                     route, " takes ", dtype, ", got ", q.scalar_type());
-  TORCH_CHECK_VALUE(d >= 1 && d <= 128, "kernels.flash: head dim must be in "
-                    "[1, 128], got ", std::to_string(d));
+  TORCH_CHECK_VALUE(d >= 1 && d <= kFlashMaxD, "kernels.flash: head dim "
+                    "must be in [1, ", std::to_string(kFlashMaxD), "], got ",
+                    std::to_string(d));
   TORCH_CHECK_VALUE(bkv >= 1 && bh % bkv == 0, "kernels.flash: ",
                     std::to_string(bh), " query heads do not share ",
                     std::to_string(bkv), " key heads evenly");

@@ -2,8 +2,8 @@
 bucketize and of the flash-attention forward, and their loader.
 
 Nine kernels, one source each (``csrc/`` here, ``../bucketize/csrc/``,
-``../flash/csrc/``). The coder's seven run one thread per lane with the
-step loop inside the thread (the Pallas ``fori_loop``):
+``../flash/csrc/``). The coder's seven run each lane's step loop (the
+Pallas ``fori_loop``) in one thread, or in a group of threads:
 
   * ``push_emit``         - ``repro/kernels/ans/kernel.py:35 _push_kernel``
                             (one chain warp a block of 32 lanes, fed from
@@ -12,9 +12,13 @@ step loop inside the thread (the Pallas ``fori_loop``):
   * ``pop_slots``         - ``kernel.py:92 _peek_kernel``;
   * ``pop_table_emit``    - ``kernel.py:120 _pop_table_kernel`` (one static
                             table per lane);
-  * ``pop_dyntable_emit`` - ``kernel.py:196 _pop_dyntable_kernel``;
+  * ``pop_dyntable_emit`` - ``kernel.py:196 _pop_dyntable_kernel`` (one
+                            chain warp a block of 32 lanes, its tables
+                            staged in shared memory by helper warps);
   * ``pop_grid_emit``     - ``kernel.py:266 _pop_grid_kernel`` (kinds
-                            ``gaussian``, ``logistic`` and ``uniform``);
+                            ``gaussian`` and ``logistic``: a group of 16
+                            or 32 threads walks a lane's bisection tree; and
+                            ``uniform``);
   * ``grid_starts``       - the push side's Gaussian and logistic starts,
                             XLA code in the reference
                             (``codecs/compile.py:97-118``, ``:357``); a

@@ -185,6 +185,72 @@ def pop_grid_emit(head: torch.Tensor, mu: torch.Tensor, sigma: torch.Tensor,
     return h, idxs, r.to(torch.int32)
 
 
+def _reached(up: torch.Tensor, levels: int) -> torch.Tensor:
+    """The leaf that ``levels`` halvings of a grid of 2^levels points
+    reach, found as ``common/group_walk.cuh`` finds it: the one leaf x
+    each of whose probed points has the bit x's path needs (bit i of x:
+    up at the level that probes x's top bits then a one). ``up`` [L,
+    points] bool -> int64[L]."""
+    hit = []
+    for x in range(1 << levels):
+        ok = torch.ones(up.shape[0], dtype=torch.bool, device=up.device)
+        for i in range(levels - 1, -1, -1):
+            point = ((x >> (i + 1)) << (i + 1)) | (1 << i)
+            ok &= up[:, point] == bool((x >> i) & 1)
+        hit.append(ok)
+    return torch.stack(hit, 1).to(torch.int64).argmax(1)
+
+
+def _answered(up: torch.Tensor, m: int) -> torch.Tensor:
+    """The last round's answer over points 0 .. 2^m + 1: m halvings reach
+    a, then the last one moves up to a + 1 when point a + 1 is up."""
+    a = _reached(up, m)
+    return a + up.gather(1, (a + 1)[:, None])[:, 0].to(torch.int64)
+
+
+#: the grid pop kernel's top-round levels by group width (``csrc/
+#: pop_grid.cu`` ``Shape``)
+GROUP_TOP_LEVELS = {32: 6, 16: 3}
+
+
+def grid_tree_walk(f: Callable[[torch.Tensor], torch.Tensor],
+                   slot: torch.Tensor, bits: int, group: int
+                   ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The grid pop kernel's bisection (``csrc/pop_grid.cu``,
+    ``common/group_walk.cuh``) round for round: a top round of the tree's
+    top ``GROUP_TOP_LEVELS[group]`` levels (the kernel's helper warps
+    evaluate it ahead), then ``group`` = 16 or 32 threads a lane walk
+    ``discretize.bisect``'s tree, ``log2(group)`` levels a round on one
+    evaluation of F a thread. ``f`` maps int64 indices [L, n] to F there
+    (any integers: nothing assumes F monotone); slot [L] -> (idx, F(idx),
+    F(idx + 1)), idx as ``discretize.bisect(f, slot, bits)`` gives it.
+    Used by no path: the tests hold it to ``bisect``."""
+    k = 1 << bits
+    g = group.bit_length() - 1
+    slot = slot.to(torch.int64)[:, None]
+    lo = torch.zeros(slot.shape[0], dtype=torch.int64, device=slot.device)
+    n = k
+    if k + 2 > group:
+        # the top round: the tree's top p levels, a grid of np points
+        p = min(GROUP_TOP_LEVELS[group], bits)
+        sp = k >> p
+        pts = torch.arange(1 << p, device=slot.device) * sp
+        up = f(pts.expand(lo.shape[0], 1 << p)) <= slot
+        lo = _reached(up, p) * sp
+        n = sp
+        while n > group // 2:   # the rounds above the last
+            step = n >> g
+            pts = lo[:, None] + torch.arange(group, device=slot.device) * step
+            lo = lo + _reached(f(pts) <= slot, g) * step
+            n = step
+    # the last round: every point lo .. lo + n + 1
+    m = n.bit_length() - 1
+    v = f(lo[:, None] + torch.arange(n + 2, device=slot.device))
+    a = _answered(v <= slot, m)
+    return (lo + a, v.gather(1, a[:, None])[:, 0],
+            v.gather(1, (a + 1)[:, None])[:, 0])
+
+
 def cdf_starts_fn(kind: str) -> Callable:
     """The pointwise starts builder of a CDF grid kind."""
     return logistic_starts_fn if kind == "logistic" else posterior_starts_fn

@@ -32,8 +32,9 @@
 // Bound: the 2 * 2 * Sq * Sk * D flops of q.k and p.v (half of it under a
 // causal mask) against the q, k, v, out bytes. This kernel runs them on
 // the CUDA cores, one FFMA at a time, with the key and value reads
-// broadcast from shared memory. DMAX = 128 keeps 256 floats a thread and
-// spills to local memory; it is right, not fast.
+// broadcast from shared memory. DMAX = 128 and 192 (the instances for
+// D above 64 and 128) keep 256 and 384 floats a thread and spill to local
+// memory; they are right, not fast.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -198,7 +199,10 @@ cudaError_t launch_dmax(const void* q, const void* k, const void* v,
   if (d <= 64)
     return launch_typed<T, 64>(q, k, v, out, bh, group, sq, sk, d, causal,
                                window, stream);
-  return launch_typed<T, 128>(q, k, v, out, bh, group, sq, sk, d, causal,
+  if (d <= 128)
+    return launch_typed<T, 128>(q, k, v, out, bh, group, sq, sk, d, causal,
+                                window, stream);
+  return launch_typed<T, 192>(q, k, v, out, bh, group, sq, sk, d, causal,
                               window, stream);
 }
 
@@ -206,7 +210,7 @@ cudaError_t launch_dmax(const void* q, const void* k, const void* v,
 
 // Launcher, called by ../../ans/csrc/bindings.cpp (declared there with C++
 // linkage: a signature that drifts leaves an undefined symbol). float32,
-// d <= 128, bh a multiple of group, checked by the binding.
+// d <= 192, bh a multiple of group, checked by the binding.
 cudaError_t launch_flash_fwd_simt(const void* q, const void* k,
                                   const void* v, void* out, int bh,
                                   int group, int sq, int sk, int d,

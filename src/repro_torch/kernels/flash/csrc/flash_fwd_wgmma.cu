@@ -21,12 +21,13 @@
 //    (setmaxnreg: 24 a thread, the consumers 240); blocks run the heaviest
 //    (last) query tiles first;
 //  * one producer thread brings Q once and each key tile of 128 keys (the
-//    Pallas wrapper's block_k) of K and V through TMA (cp.async.bulk.
-//    tensor, 128-byte swizzle) into a ring of 4 stages (3 at D 128),
-//    paced by mbarriers; TMA zero-fills rows past Sq or Sk and columns
-//    past D. With 2 stages the next tile could only be asked for once
+//    Pallas wrapper's block_k; 64 at D above 128, key_tile) of K and V
+//    through TMA (cp.async.bulk.tensor, 128-byte swizzle) into a ring of
+//    4 stages (3 at D 128 and 192), paced by mbarriers; TMA zero-fills
+//    rows past Sq or Sk and columns past D (instances of 64, 128 and 192
+//    columns). With 2 stages the next tile could only be asked for once
 //    the one before had been used, and every tile waited on its load;
-//  * S = Q K^T is wgmma m64n128k16 with both operands K-major in shared
+//  * S = Q K^T is wgmma m64nBKk16 with both operands K-major in shared
 //    memory; the softmax runs on the accumulator fragments (row max by
 //    quad shuffles; masks only on tiles that straddle the diagonal, the
 //    window edge or Sk); p, rounded to bfloat16 in registers, is the
@@ -55,17 +56,27 @@
 namespace {
 
 constexpr int BQ = 128;      // queries a block
-constexpr int BK = 128;      // keys a tile
 constexpr int PANEL = 64;    // bf16 columns of one 128-byte swizzled row
 constexpr int CONSUMERS = 256;               // two warpgroups
 constexpr int THREADS = CONSUMERS + 128;     // and a producer warpgroup
 constexpr float NEG_INF = -1e30f;
 
-// Shared memory of a block for padded head dim DP (64 or 128): each tile
-// is DP / 64 panels of [rows][64] bf16, 128-byte rows swizzled by TMA, so
-// every panel starts on a 1024-byte boundary.
+// Keys a tile at padded head dim DP: 128 (the Pallas wrapper's block_k)
+// up to DP 128, 64 at DP 192, where Q (48 KB) and two stages of 128-key
+// K and V tiles (96 KB each) would overflow the 227 KB of shared memory.
+// ../twin.py block_k(D) gives the plain version the same tile, so that a
+// bfloat16 p is rounded against the same running max.
+template <int DP>
+constexpr int key_tile() {
+  return DP > 128 ? 64 : 128;
+}
+
+// Shared memory of a block for padded head dim DP (64, 128 or 192): each
+// tile is DP / 64 panels of [rows][64] bf16, 128-byte rows swizzled by
+// TMA, so every panel starts on a 1024-byte boundary.
 template <int DP>
 struct Smem {
+  static constexpr int BK = key_tile<DP>();
   // Key tiles in flight: as many as the 227 KB of shared memory hold.
   static constexpr int STAGES = DP == 64 ? 4 : 3;
   __nv_bfloat16 q[DP / PANEL][BQ][PANEL];
@@ -115,8 +126,8 @@ __device__ __forceinline__ void bar_wait(uint64_t* bar, uint32_t parity) {
   }
 }
 
-// One TMA box {64 columns, 128 rows, 1 head} at (col, row, head) into
-// `dst`, completing on `bar`.
+// One TMA box ({64 columns, the map's rows, 1 head}) at (col, row, head)
+// into `dst`, completing on `bar`.
 __device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map,
                                          int col, int row, int head,
                                          uint64_t* bar) {
@@ -156,9 +167,10 @@ __device__ __forceinline__ void fence_regs(float (&d)[N]) {
 #pragma unroll
   for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
 }
-__device__ __forceinline__ void fence_regs(uint32_t (&a)[8][4]) {
+template <int N>
+__device__ __forceinline__ void fence_regs(uint32_t (&a)[N][4]) {
 #pragma unroll
-  for (int i = 0; i < 8; ++i)
+  for (int i = 0; i < N; ++i)
 #pragma unroll
     for (int j = 0; j < 4; ++j) asm volatile("" : "+r"(a[i][j])::"memory");
 }
@@ -238,13 +250,76 @@ __device__ __forceinline__ void wgmma_m64n128k16_rs(float (&d)[64],
 }
 
 
+__device__ __forceinline__ void wgmma_m64n64k16_ss(float (&d)[32], uint64_t da, uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,\n"
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+__device__ __forceinline__ void wgmma_m64n192k16_rs(float (&d)[96], const uint32_t (&a)[4], uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %101, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n192k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,\n"
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,\n"
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,\n"
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63,\n"
+      "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79,\n"
+      "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95"
+      "}, {%96, %97, %98, %99}, %100, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
+        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]), "+f"(d[65]),
+        "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]),
+        "+f"(d[78]), "+f"(d[79]), "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]),
+        "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]),
+        "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// O += P V over one step of 16 keys: N = DP output columns.
 template <int DP>
 __device__ __forceinline__ void wgmma_pv(float (&o)[DP / 2],
                                          const uint32_t (&a)[4], uint64_t db) {
   if constexpr (DP == 64)
     wgmma_m64n64k16_rs(o, a, db);
-  else
+  else if constexpr (DP == 128)
     wgmma_m64n128k16_rs(o, a, db);
+  else
+    wgmma_m64n192k16_rs(o, a, db);
+}
+
+// S (+)= Q K^T over one step of 16 columns of D: N = BK keys.
+template <int BK>
+__device__ __forceinline__ void wgmma_qk(float (&sc)[BK / 2], uint64_t da,
+                                         uint64_t db, int scale_d) {
+  if constexpr (BK == 64)
+    wgmma_m64n64k16_ss(sc, da, db, scale_d);
+  else
+    wgmma_m64n128k16_ss(sc, da, db, scale_d);
 }
 
 // 2^x, flushing results below 2^-126 to 0 (where exp2f, like torch.exp2
@@ -263,17 +338,18 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
 // Issues, and commits as one group each, O += P V (PV) and S = Q K^T
 // (QK) for one warpgroup; neither is waited for. S: DP / 16 steps of 16
 // columns; a step moves 32 bytes along the swizzled 128-byte rows, a
-// panel 128 rows on. P V: V's rows are keys (the reduction), its
-// 64-column panels the output columns, read MN-major: 8 keys a 1024-byte
-// group (SBO), a panel BK rows on (LBO); a step of 16 keys moves 2048
-// bytes, and the fragment of keys 16 kk .. 16 kk + 15 of P is pa[kk].
-// The registers the products read and write are written before the
-// fence.
-template <int DP, bool QK, bool PV>
-__device__ __forceinline__ void issue(float (&sc)[64], float (&o)[DP / 2],
-                                      uint32_t (&pa)[8][4], uint32_t q_base,
-                                      uint32_t k_base, uint32_t v_base) {
-  uint64_t da[DP / 16], db[DP / 16], dv[8];
+// panel 128 (Q) or BK (K) rows on. P V: V's rows are keys (the
+// reduction), its 64-column panels the output columns, read MN-major: 8
+// keys a 1024-byte group (SBO), a panel BK rows on (LBO); a step of 16
+// keys moves 2048 bytes, and the fragment of keys 16 kk .. 16 kk + 15 of
+// P is pa[kk]. The registers the products read and write are written
+// before the fence.
+template <int DP, bool QK, bool PV, int BK = key_tile<DP>()>
+__device__ __forceinline__ void issue(float (&sc)[BK / 2], float (&o)[DP / 2],
+                                      uint32_t (&pa)[BK / 16][4],
+                                      uint32_t q_base, uint32_t k_base,
+                                      uint32_t v_base) {
+  uint64_t da[DP / 16], db[DP / 16], dv[BK / 16];
 #pragma unroll
   for (int kk = 0; kk < DP / 16; ++kk) {
     da[kk] = desc_sw128(q_base + (kk / 4) * (BQ * 128) + (kk % 4) * 32, 16,
@@ -282,7 +358,7 @@ __device__ __forceinline__ void issue(float (&sc)[64], float (&o)[DP / 2],
                         1024);
   }
 #pragma unroll
-  for (int kk = 0; kk < 8; ++kk)
+  for (int kk = 0; kk < BK / 16; ++kk)
     dv[kk] = desc_sw128(v_base + kk * 2048, BK * 128, 1024);
   if (QK) fence_regs(sc);
   if (PV) {
@@ -292,13 +368,13 @@ __device__ __forceinline__ void issue(float (&sc)[64], float (&o)[DP / 2],
   wgmma_fence();
   if (PV) {
 #pragma unroll
-    for (int kk = 0; kk < 8; ++kk) wgmma_pv<DP>(o, pa[kk], dv[kk]);
+    for (int kk = 0; kk < BK / 16; ++kk) wgmma_pv<DP>(o, pa[kk], dv[kk]);
     wgmma_commit();
   }
   if (QK) {
 #pragma unroll
     for (int kk = 0; kk < DP / 16; ++kk)
-      wgmma_m64n128k16_ss(sc, da[kk], db[kk], kk > 0);
+      wgmma_qk<BK>(sc, da[kk], db[kk], kk > 0);
     wgmma_commit();
   }
 }
@@ -314,12 +390,13 @@ __device__ __forceinline__ void issue(float (&sc)[64], float (&o)[DP / 2],
 // subtraction and no fused product: a float p one ulp off rounds to
 // another bfloat16 now and then, and at |v| near 90 that moves an output
 // by 0.35.
-template <bool MASKED>
-__device__ __forceinline__ void softmax(const float (&sc)[64], float (&m)[2],
-                                        float (&l)[2], float (&corr)[2],
-                                        uint32_t (&pa)[8][4], float scale,
-                                        int k0, int r0, int c0, int sk,
-                                        int causal, int window) {
+template <int BK, bool MASKED>
+__device__ __forceinline__ void softmax(const float (&sc)[BK / 2],
+                                        float (&m)[2], float (&l)[2],
+                                        float (&corr)[2],
+                                        uint32_t (&pa)[BK / 16][4],
+                                        float scale, int k0, int r0, int c0,
+                                        int sk, int causal, int window) {
   auto score = [&](int i) {
     if (!MASKED) return sc[i] * scale;
     const int kj = k0 + 8 * (i / 4) + c0 + (i & 1);
@@ -333,7 +410,7 @@ __device__ __forceinline__ void softmax(const float (&sc)[64], float (&m)[2],
   for (int r = 0; r < 2; ++r) {
     float mx = score(2 * r);
 #pragma unroll
-    for (int j = 0; j < 16; ++j)
+    for (int j = 0; j < BK / 8; ++j)
       mx = fmaxf(mx, fmaxf(score(4 * j + 2 * r), score(4 * j + 2 * r + 1)));
     mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
     mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
@@ -348,7 +425,7 @@ __device__ __forceinline__ void softmax(const float (&sc)[64], float (&m)[2],
     return y;
   };
 #pragma unroll
-  for (int kk = 0; kk < 8; ++kk) {
+  for (int kk = 0; kk < BK / 16; ++kk) {
 #pragma unroll
     for (int h = 0; h < 4; ++h) {
       const float lo = p(8 * kk + 2 * h), hi = p(8 * kk + 2 * h + 1);
@@ -371,7 +448,9 @@ __global__ void __launch_bounds__(THREADS, 1)
   const uint32_t pad = (1024 - (smem_addr(smem_raw) & 1023)) & 1023;
   Smem<DP>& sm = *reinterpret_cast<Smem<DP>*>(smem_raw + pad);
   constexpr int PANELS = DP / PANEL;
-  constexpr uint32_t TILE_BYTES = PANELS * BK * PANEL * 2;
+  constexpr int BK = Smem<DP>::BK;
+  constexpr uint32_t Q_BYTES = PANELS * BQ * PANEL * 2;
+  constexpr uint32_t KV_BYTES = PANELS * BK * PANEL * 2;
   constexpr int STAGES = Smem<DP>::STAGES;
 
   const int bh = blockIdx.x;
@@ -398,17 +477,17 @@ __global__ void __launch_bounds__(THREADS, 1)
   if (tid >= CONSUMERS) {  // the producer warpgroup; one thread issues
     asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n");
     if (tid == CONSUMERS) {
-      bar_expect(&sm.q_full, TILE_BYTES);
+      bar_expect(&sm.q_full, Q_BYTES);
       for (int p = 0; p < PANELS; ++p)
         tma_load(&sm.q[p][0][0], &tq, p * PANEL, q0, bh, &sm.q_full);
       for (int i = 0; i < n_tiles; ++i) {
         const int s = i % STAGES, k0 = (t_lo + i) * BK;
         if (i >= STAGES) bar_wait(&sm.empty[s], ((i / STAGES) - 1) & 1);
-        bar_expect(&sm.k_full[s], TILE_BYTES);
+        bar_expect(&sm.k_full[s], KV_BYTES);
         for (int p = 0; p < PANELS; ++p)
           tma_load(&sm.k[s][p][0][0], &tk, p * PANEL, k0, bh / group,
                    &sm.k_full[s]);
-        bar_expect(&sm.v_full[s], TILE_BYTES);
+        bar_expect(&sm.v_full[s], KV_BYTES);
         for (int p = 0; p < PANELS; ++p)
           tma_load(&sm.v[s][p][0][0], &tv, p * PANEL, k0, bh / group,
                    &sm.v_full[s]);
@@ -435,14 +514,14 @@ __global__ void __launch_bounds__(THREADS, 1)
     return k0 + BK > sk || (causal && k0 + BK - 1 > w0) ||
            (window > 0 && k0 <= w0 + 63 - window);
   };
-  auto update = [&](float(&sc)[64], float(&m)[2], float(&l)[2],
-                    float(&corr)[2], uint32_t(&pa)[8][4], int t) {
+  auto update = [&](float(&sc)[BK / 2], float(&m)[2], float(&l)[2],
+                    float(&corr)[2], uint32_t(&pa)[BK / 16][4], int t) {
     if (masked(t))
-      softmax<true>(sc, m, l, corr, pa, scale, t * BK, r0, c0, sk,
-                    causal, window);
+      softmax<BK, true>(sc, m, l, corr, pa, scale, t * BK, r0, c0, sk,
+                        causal, window);
     else
-      softmax<false>(sc, m, l, corr, pa, scale, t * BK, r0, c0, sk,
-                     causal, window);
+      softmax<BK, false>(sc, m, l, corr, pa, scale, t * BK, r0, c0, sk,
+                         causal, window);
   };
 
   float o[DP / 2];
@@ -452,8 +531,8 @@ __global__ void __launch_bounds__(THREADS, 1)
   float l[2] = {0.f, 0.f};  // this thread's share of the row sums
 
   if (n_tiles > 0) {
-    float sc[64], corr[2];
-    uint32_t pa[8][4];
+    float sc[BK / 2], corr[2];
+    uint32_t pa[BK / 16][4];
     bar_wait(&sm.q_full, 0);
     bar_wait(&sm.k_full[0], 0);
     issue<DP, true, false>(sc, o, pa, q_base, smem_addr(&sm.k[0][0][0][0]),
@@ -535,14 +614,15 @@ EncodeTiled encode_tiled() {
 }
 
 // The tensor map of a contiguous bf16 [heads, rows, dp] tensor in boxes of
-// {64 columns, 128 rows, 1 head}, 128-byte swizzled, zero past its edges.
+// {64 columns, box_rows rows, 1 head}, 128-byte swizzled, zero past its
+// edges.
 bool tensor_map(CUtensorMap* map, EncodeTiled encode, const void* base,
-                int heads, int rows, int dp) {
+                int heads, int rows, int dp, int box_rows) {
   const cuuint64_t dims[3] = {(cuuint64_t)dp, (cuuint64_t)rows,
                               (cuuint64_t)heads};
   const cuuint64_t strides[2] = {(cuuint64_t)dp * 2,
                                  (cuuint64_t)rows * dp * 2};
-  const cuuint32_t box[3] = {PANEL, 128, 1};
+  const cuuint32_t box[3] = {PANEL, (cuuint32_t)box_rows, 1};
   const cuuint32_t unit[3] = {1, 1, 1};
   return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3,
                 const_cast<void*>(base), dims, strides, box, unit,
@@ -551,11 +631,17 @@ bool tensor_map(CUtensorMap* map, EncodeTiled encode, const void* base,
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
+// Q in boxes of 128 query rows, K and V of the instance's key tile.
 template <int DP>
-cudaError_t launch_typed(const CUtensorMap& tq, const CUtensorMap& tk,
-                         const CUtensorMap& tv, void* out, int bh, int group,
-                         int sq, int sk, int dp, int causal, int window,
-                         float scale, cudaStream_t stream) {
+cudaError_t launch_typed(EncodeTiled encode, const void* q, const void* k,
+                         const void* v, void* out, int bh, int group, int sq,
+                         int sk, int dp, int causal, int window, float scale,
+                         cudaStream_t stream) {
+  CUtensorMap tq, tk, tv;
+  if (!tensor_map(&tq, encode, q, bh, sq, dp, BQ) ||
+      !tensor_map(&tk, encode, k, bh / group, sk, dp, Smem<DP>::BK) ||
+      !tensor_map(&tv, encode, v, bh / group, sk, dp, Smem<DP>::BK))
+    return cudaErrorInvalidValue;
   const int smem = (int)sizeof(Smem<DP>) + 1024;  // + alignment slack
   static bool sized[64] = {};  // the attribute, once a card
   int dev = 0;
@@ -580,26 +666,26 @@ cudaError_t launch_typed(const CUtensorMap& tq, const CUtensorMap& tk,
 // Launcher, called by ../../ans/csrc/bindings.cpp (declared there with C++
 // linkage). q [bh, sq, dp], k and v [bh / group, sk, dp], out [bh, sq, dp]:
 // contiguous bf16 on the current card, 16-byte aligned, dp a multiple of
-// 16 in [16, 128], sk >= 1 (checked by the binding); head_dim is the true
-// D <= dp that sets the scale.
+// 16 in [16, 192], sk >= 1 (checked by the binding); head_dim is the true
+// D <= dp that sets the scale. The instance has the next of 64, 128 and
+// 192 columns; TMA fills the columns past dp with zeros.
 cudaError_t launch_flash_fwd_wgmma(const void* q, const void* k,
                                    const void* v, void* out, int bh,
                                    int group, int sq, int sk, int dp,
                                    int head_dim, int causal, int window,
                                    cudaStream_t stream) {
   if (bh == 0 || sq == 0) return cudaSuccess;
+  if (dp > 192) return cudaErrorInvalidValue;
   EncodeTiled encode = encode_tiled();
   if (encode == nullptr) return cudaErrorNotSupported;
-  CUtensorMap tq, tk, tv;
-  if (!tensor_map(&tq, encode, q, bh, sq, dp) ||
-      !tensor_map(&tk, encode, k, bh / group, sk, dp) ||
-      !tensor_map(&tv, encode, v, bh / group, sk, dp))
-    return cudaErrorInvalidValue;
   const float scale =
       (float)(std::pow((double)head_dim, -0.5) * 1.4426950408889634);
   if (dp <= 64)
-    return launch_typed<64>(tq, tk, tv, out, bh, group, sq, sk, dp, causal,
-                            window, scale, stream);
-  return launch_typed<128>(tq, tk, tv, out, bh, group, sq, sk, dp, causal,
-                           window, scale, stream);
+    return launch_typed<64>(encode, q, k, v, out, bh, group, sq, sk, dp,
+                            causal, window, scale, stream);
+  if (dp <= 128)
+    return launch_typed<128>(encode, q, k, v, out, bh, group, sq, sk, dp,
+                             causal, window, scale, stream);
+  return launch_typed<192>(encode, q, k, v, out, bh, group, sq, sk, dp,
+                           causal, window, scale, stream);
 }

@@ -3,12 +3,16 @@ of ``repro/kernels/flash/kernel.py:28 _flash_fwd_kernel``), in two routes
 that the inputs' dtype picks (``route``):
 
   * ``"wgmma"`` - bfloat16, ``csrc/flash_fwd_wgmma.cu``: the tensor cores
-    (wgmma) fed by TMA. Its tiles hold a multiple of 16 columns, so this
-    wrapper zero-pads q, k and v to the next multiple of 16 when D is not
-    one (zero columns add nothing to q . k or to the output's kept
+    (wgmma) fed by TMA, in instances of 64, 128 and 192 columns (keys a
+    tile: ``twin.block_k(D)``). Its tiles hold a multiple of 16 columns,
+    so this wrapper zero-pads q, k and v to the next multiple of 16 when D
+    is not one (zero columns add nothing to q . k or to the output's kept
     columns) and passes the true D, which sets the scale;
   * ``"simt"`` - float32, ``csrc/flash_fwd.cu``: the CUDA cores, since the
     tensor cores would run float32 as TF32.
+
+Both take head dims up to 192 (the largest a registered config has is
+stablelm-12b's 160); the binding raises above.
 
 Both sources are built with the ANS kernels into one extension
 (``kernels/ans/kernel.py`` ``build``, bound in ``ans/csrc/bindings.cpp``,
@@ -59,7 +63,7 @@ def _aligned(t: torch.Tensor) -> torch.Tensor:
 def flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
               causal: bool = True, window: int = 0) -> torch.Tensor:
     """q [BH, Sq, D]; k/v [BH // G, Sk, D], contiguous, all float32 or
-    all bfloat16, D <= 128 -> out [BH, Sq, D] in q's dtype.
+    all bfloat16, D <= 192 -> out [BH, Sq, D] in q's dtype.
     ``window <= 0`` disables the window."""
     r = route(q.dtype)
     d = q.shape[-1]

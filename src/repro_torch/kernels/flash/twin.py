@@ -3,13 +3,13 @@ CUDA kernels walk it: the kernels' CPU path and what they are held to on
 the card.
 
 For each tile of ``BLOCK_Q`` queries it visits only the key tiles of
-``BLOCK_K`` that the causal and window limits leave (``kv_tiles``), and
-updates the online softmax ``(m, l, acc)``, in float32, once a key tile
-(``SUB = BLOCK_K``), as the bfloat16 tensor-core kernel and the Pallas
-kernel at its default ``block_k`` do: a bfloat16 ``p`` is rounded against
-the same running max on all three. (The float32 kernel updates every 16
-keys; float32 ``p`` is not rounded, so that changes only the float32
-rounding.) Scores are ``q . k * D^-0.5`` summed in float32 (on the card,
+``block_k(D)`` that the causal and window limits leave (``kv_tiles``), and
+updates the online softmax ``(m, l, acc)``, in float32, once a key tile,
+as the bfloat16 tensor-core kernel does (and the Pallas kernel at its
+default ``block_k``, ``BLOCK_K``, up to D 128): a bfloat16 ``p`` is
+rounded against the same running max on both. (The float32 kernel
+updates every 16 keys; float32 ``p`` is not rounded, so that changes
+only the float32 rounding.) Scores are ``q . k * D^-0.5`` summed in float32 (on the card,
 bfloat16 scores are summed by the tensor cores, as the kernel sums them)
 and held in log2 units; a masked score is -1e30 (not -inf, as the Pallas
 kernel sets it), ``p`` is cast to v's dtype before ``p . v``, and the
@@ -31,19 +31,26 @@ import torch
 
 BLOCK_Q = 128
 BLOCK_K = 128
-SUB = BLOCK_K
 NEG_INF = -1e30
 LOG2E = 1.4426950408889634
 
 
-def kv_tiles(q0: int, q1: int, sk: int, causal: bool, window: int
-             ) -> Tuple[int, int]:
-    """The key tiles ``[lo, hi)`` that queries ``[q0, q1)`` may attend
-    to: up to the last query when causal, from ``q0 - window + 1`` when
-    ``window > 0``."""
+def block_k(d: int) -> int:
+    """Keys a tile, and a softmax update, at head dim ``d``: ``BLOCK_K``
+    up to 128, 64 above (the tensor-core kernel's ``key_tile``: at 192
+    padded columns two stages of 128-key tiles overflow its shared
+    memory)."""
+    return BLOCK_K if d <= 128 else 64
+
+
+def kv_tiles(q0: int, q1: int, sk: int, causal: bool, window: int,
+             bk: int = BLOCK_K) -> Tuple[int, int]:
+    """The key tiles ``[lo, hi)`` of ``bk`` keys that queries ``[q0,
+    q1)`` may attend to: up to the last query when causal, from ``q0 -
+    window + 1`` when ``window > 0``."""
     end = min(sk, q1) if causal else sk
     start = max(0, q0 - window + 1) if window > 0 else 0
-    return start // BLOCK_K, -(-end // BLOCK_K)
+    return start // bk, -(-end // bk)
 
 
 def _scores(qb: torch.Tensor, kb: torch.Tensor) -> torch.Tensor:
@@ -72,6 +79,7 @@ def flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     bh, sq, d = q.shape
     bkv, sk, _ = k.shape
     g = bh // bkv
+    bk = block_k(d)
     scale = (head_dim or d) ** -0.5 * LOG2E
     qg = q.reshape(bkv, g, sq, d)
     vf = v.float()
@@ -83,9 +91,9 @@ def flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         m = torch.full(qb.shape[:3], NEG_INF, device=q.device)
         l = torch.zeros_like(m)
         acc = torch.zeros(qb.shape, device=q.device)
-        lo, hi = kv_tiles(q0, q1, sk, causal, window)
-        for k0 in range(lo * BLOCK_K, min(hi * BLOCK_K, sk), SUB):
-            k1 = min(k0 + SUB, sk)
+        lo, hi = kv_tiles(q0, q1, sk, causal, window, bk)
+        for k0 in range(lo * bk, min(hi * bk, sk), bk):
+            k1 = min(k0 + bk, sk)
             k_ids = torch.arange(k0, k1, device=q.device)[None, :]
             s = _scores(qb, k[:, k0:k1]) * scale
             valid = torch.ones((q1 - q0, k1 - k0), dtype=torch.bool,

@@ -61,28 +61,30 @@ def init(cfg, generator: torch.Generator, *,
     ``[L]``-stacked ``blocks`` (``ln1``, ``ln2``, ``attn.{wq,wk,wv,wo}``,
     ``mlp``) and, untied, ``unembed``. Drawn from ``generator`` on its own
     device (a CUDA generator draws on the card), then moved to
-    ``device``."""
+    ``device``, in float32 and cast to ``cfg.param_dtype`` one subtree at
+    a time (a 12B model's float32 tree would not fit beside its cast on
+    an 80 GB card)."""
     check_supported(cfg)
     device = dev.resolve(device)
+    pd = getattr(torch, cfg.param_dtype)
+    cast = lambda tree: _tree_map(lambda t: t.to(pd), tree)
     kw = dict(lead=(cfg.n_layers,), device=device)
     params: Dict[str, Any] = {
-        "embed": layers.embed_init(generator, cfg.vocab, cfg.d_model,
-                                   device=device),
-        "ln_f": layers.norm_init(cfg.norm, cfg.d_model, device=device),
+        "embed": cast(layers.embed_init(generator, cfg.vocab, cfg.d_model,
+                                        device=device)),
+        "ln_f": cast(layers.norm_init(cfg.norm, cfg.d_model,
+                                      device=device)),
         "blocks": {
-            "ln1": layers.norm_init(cfg.norm, cfg.d_model, **kw),
-            "ln2": layers.norm_init(cfg.norm, cfg.d_model, **kw),
-            "attn": attention.attn_init(generator, cfg, **kw),
-            "mlp": layers.mlp_init(generator, cfg.d_model, cfg.d_ff,
-                                   cfg.act, **kw),
+            "ln1": cast(layers.norm_init(cfg.norm, cfg.d_model, **kw)),
+            "ln2": cast(layers.norm_init(cfg.norm, cfg.d_model, **kw)),
+            "attn": cast(attention.attn_init(generator, cfg, **kw)),
+            "mlp": cast(layers.mlp_init(generator, cfg.d_model, cfg.d_ff,
+                                        cfg.act, **kw)),
         },
     }
     if not cfg.tie_embeddings:
-        params["unembed"] = layers.embed_init(generator, cfg.vocab,
-                                              cfg.d_model, device=device)
-    if cfg.param_dtype != "float32":
-        pd = getattr(torch, cfg.param_dtype)
-        params = _tree_map(lambda t: t.to(pd), params)
+        params["unembed"] = cast(layers.embed_init(
+            generator, cfg.vocab, cfg.d_model, device=device))
     return params
 
 

@@ -56,7 +56,7 @@ def _inputs(lanes, precision, seed=0):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("precision", [12, 16])
-@pytest.mark.parametrize("lanes", [1, 3, 128, 130])
+@pytest.mark.parametrize("lanes", [1, 3, 32, 128, 130, 4101])
 def test_kernels_match_twin(kernel, lanes, precision):
     lb, c = _inputs(lanes, precision)
     g = {k: v.cuda() for k, v in c.items()}
@@ -307,6 +307,9 @@ def test_hvae_kernel_leaf_on_the_card(kernel):
     (4, 2, 257, 257, 64, True, 100, "float32"),    # windowed
     (2, 1, 96, 160, 32, False, 0, "float32"),
     (4, 4, 130, 130, 128, True, 0, "bfloat16"),    # mistral-nemo's head
+    (32, 4, 4096, 4096, 160, True, 0, "bfloat16"),  # stablelm-12b's layer
+    (6, 3, 300, 300, 192, True, 0, "bfloat16"),     # the largest D
+    (4, 2, 257, 257, 160, True, 100, "float32"),    # ragged, windowed
     (2, 2, 100, 84, 8, True, 0, "float32"),
     (14, 7, 4096, 4096, 64, True, 0, "bfloat16"),  # qwen2-0.5b's layer
     (14, 7, 4096, 4096, 128, True, 0, "bfloat16"),
@@ -357,6 +360,11 @@ def test_flash_binding_refuses_what_a_route_does_not_take(kernel):
     b40 = torch.zeros((2, 64, 40), device="cuda", dtype=torch.bfloat16)
     with pytest.raises(ValueError, match="multiple of 16"):
         kernel.build().flash_fwd(b40, b40, b40, True, 0, "wgmma", 40)
+    for dtype, route in ((torch.bfloat16, "wgmma"), (torch.float32, "simt")):
+        big = torch.zeros((2, 64, 193), device="cuda", dtype=dtype)
+        with pytest.raises(ValueError,
+                           match=r"head dim must be in \[1, 192\]"):
+            kernel.build().flash_fwd(big, big, big, True, 0, route, 193)
 
 
 def _adversarial_push(lanes, steps, precision, seed):
@@ -391,3 +399,114 @@ def test_push_kernel_matches_twin_on_adversarial_inputs(kernel, lanes,
         assert torch.equal(a.cpu().to(torch.int64), b.to(torch.int64))
     with pytest.raises(ValueError, match="precision must be in"):
         kernel.push_emit(head.cuda(), start.cuda(), freq.cuda(), 17)
+
+
+def _grid_edges(lanes, steps, lat_bits, seed):
+    """Grid-pop inputs at the edges: heads near 2^32 and heads whose
+    first slot is 0 or 2^16 - 1, mu over [-8, 8] and sigma log-uniform
+    over [1e-3, 30] with each range's ends, on the CPU."""
+    rng = np.random.default_rng(seed)
+    head = rng.integers(1 << 16, 1 << 32, lanes, dtype=np.int64)
+    head[::4] = (1 << 32) - 1 - rng.integers(0, 1 << 12, len(head[::4]))
+    head[1::4] = head[1::4] & ~0xFFFF
+    head[2::4] = head[2::4] | 0xFFFF
+    mu = rng.uniform(-8.0, 8.0, (steps, lanes))
+    mu[0, :2] = (-8.0, 8.0)[:lanes]
+    sigma = np.exp(rng.uniform(np.log(1e-3), np.log(30.0), (steps, lanes)))
+    sigma[1 % steps, :2] = (1e-3, 30.0)[:lanes]
+    f32 = lambda a: torch.from_numpy(a.astype(np.float32))
+    return (torch.from_numpy(head), f32(mu), f32(sigma),
+            torch.from_numpy(rng.integers(0, 1 << 16, (steps, lanes))
+                             .astype(np.int32)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["gaussian", "logistic"])
+@pytest.mark.parametrize("lanes,steps,lat_bits", [
+    (1, 40, 10), (3, 40, 10), (32, 392, 10), (130, 40, 12), (4101, 40, 10),
+    (64, 40, 1), (64, 40, 2), (64, 40, 3), (64, 40, 4), (33, 40, 8),
+    (512, 40, 10), (513, 40, 10), (1024, 40, 10), (1025, 40, 10),
+    (1025, 40, 1), (1025, 40, 2), (1025, 40, 3), (1025, 40, 12)])
+def test_grid_pop_group_walk_matches_twin(kernel, kind, lanes, steps,
+                                          lat_bits):
+    """The grid pop's group walk, bit for bit, at both group widths (the
+    launcher takes 32 threads a lane up to 1024 gaussian or 512 logistic
+    lanes, 16 above), lat_bits from 1 (one round over all points) to 12,
+    and lane counts off the blocks' sizes."""
+    head, mu, sigma, feed = _grid_edges(lanes, steps, lat_bits,
+                                        lanes + steps + lat_bits)
+    e = discretize.edge_table(lat_bits, "cpu")
+    want = twin.pop_grid_emit(head, mu, sigma, feed, e, kind, lat_bits, 16)
+    g = [t.cuda() for t in (head, mu, sigma, feed)]
+    kernel.reset_launches()
+    got = kernel.pop_grid_emit(*g[:4], e.cuda(), kind, lat_bits, 16)
+    torch.cuda.synchronize()
+    assert kernel.LAUNCHES[f"pop_grid_emit/{kind}"] == 1
+    for a, b in zip(got, want):
+        assert torch.equal(a.cpu().to(torch.int64), b.to(torch.int64))
+
+
+def _dyn_tables(rng, steps, lanes, a1, precision):
+    """Non-decreasing per-step tables 0 .. 2^precision, some symbols of
+    zero frequency."""
+    w = rng.integers(1, 100, (steps, lanes, a1 - 1)) * \
+        (rng.random((steps, lanes, a1 - 1)) > 0.2)
+    w[..., 0] += 1
+    cdf = np.floor(np.cumsum(w, -1) / w.sum(-1, keepdims=True)
+                   * (1 << precision))
+    t = np.concatenate([np.zeros((steps, lanes, 1)), cdf], -1)
+    t[..., -1] = 1 << precision
+    return torch.from_numpy(t.astype(np.int32))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lanes,a1,steps", [
+    (1, 3, 1), (32, 3, 784), (33, 3, 70), (4101, 3, 100), (32, 2, 70),
+    (130, 13, 70), (64, 257, 37), (3, 401, 5), (4096, 2, 33)])
+@pytest.mark.parametrize("precision", [12, 16])
+def test_dyntable_kernel_matches_twin(kernel, lanes, a1, steps, precision):
+    """The staged dyntable pop, bit for bit: A+1 from 2 to 257 (and 401,
+    past the staging's width), steps off the staging tile, lanes off the
+    block's 32."""
+    rng = np.random.default_rng(lanes + a1 + steps + precision)
+    head = torch.from_numpy(rng.integers(1 << 16, 1 << 32, lanes,
+                                         dtype=np.int64))
+    head[::3] = (1 << 32) - 1 - torch.from_numpy(
+        rng.integers(0, 1 << 12, len(head[::3])))
+    tables = _dyn_tables(rng, steps, lanes, a1, precision)
+    feed = torch.from_numpy(rng.integers(0, 1 << 16, (steps, lanes))
+                            .astype(np.int32))
+    kernel.reset_launches()
+    got = kernel.pop_dyntable_emit(head.cuda(), tables.cuda(), feed.cuda(),
+                                   precision)
+    torch.cuda.synchronize()
+    assert kernel.LAUNCHES["pop_dyntable_emit"] == 1
+    want = twin.pop_dyntable_emit(head, tables, feed, precision)
+    for a, b in zip(got, want):
+        assert torch.equal(a.cpu().to(torch.int64), b.to(torch.int64))
+
+
+@pytest.mark.cuda
+def test_dyntable_kernel_reads_past_its_feed_ring(kernel):
+    """Lanes that read far apart: half the lanes pop 8 bits a step from
+    uniform 256-symbol tables, half pop almost nothing from tables with
+    one likely symbol, so the fast lanes run past the feed rows the
+    kernel keeps in shared memory (256) and read device memory."""
+    rng = np.random.default_rng(21)
+    lanes, steps, a1 = 64, 700, 257
+    uniform = np.arange(a1) * 256
+    skewed = np.concatenate([np.arange(a1 - 1), [1 << 16]])
+    tables = np.where((np.arange(lanes) % 2 == 0)[None, :, None],
+                      uniform[None, None, :], skewed[None, None, :])
+    tables = torch.from_numpy(np.broadcast_to(
+        tables, (steps, lanes, a1)).astype(np.int32).copy())
+    head = torch.from_numpy(rng.integers(1 << 16, 1 << 32, lanes,
+                                         dtype=np.int64))
+    feed = torch.from_numpy(rng.integers(0, 1 << 16, (steps, lanes))
+                            .astype(np.int32))
+    got = kernel.pop_dyntable_emit(head.cuda(), tables.cuda(), feed.cuda(),
+                                   16)
+    want = twin.pop_dyntable_emit(head, tables, feed, 16)
+    assert int(want[2][0::2].min()) - int(want[2][1::2].max()) > 256
+    for a, b in zip(got, want):
+        assert torch.equal(a.cpu().to(torch.int64), b.to(torch.int64))

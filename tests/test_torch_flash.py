@@ -180,3 +180,27 @@ def test_the_card_runs_the_kernel_or_raises():
     with pytest.raises(RuntimeError, match="cuda backend"):
         ops.flash_attention(q, q, q, backend="cuda")
     assert dispatch.resolve("flash", torch.device("cpu")) == "torch"
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("d", [160, 192])
+def test_twin_at_head_dims_above_128_matches_the_oracles(d, dtype):
+    """stablelm-12b's head dim (160) and the kernels' largest (192): the
+    plain version, on 64-key tiles there (``twin.block_k``, the
+    tensor-core kernel's tile at 192 padded columns), against the port's
+    exact oracle and the reference's, GQA-free, causal with a window."""
+    bh, s = 2, 200
+    (qj, q), (kj, k), (vj, v) = (_pair((bh, s, d), dtype, d + i)
+                                 for i in range(3))
+    got = twin.flash_fwd(q, k, v, causal=True, window=150)
+    tol = _tol(dtype)
+    for want in (ref.flash_ref(q, k, v, causal=True, window=150),
+                 ref_ref.flash_ref(qj, kj, vj, causal=True, window=150)):
+        np.testing.assert_allclose(_f32(got), _f32(want), rtol=tol,
+                                   atol=tol)
+
+
+def test_key_tile_follows_the_head_dim():
+    assert [twin.block_k(d) for d in (8, 64, 128, 129, 160, 192)] == \
+        [128, 128, 128, 64, 64, 64]
+    assert twin.kv_tiles(256, 384, 4096, True, 0, 64) == (0, 6)

@@ -299,3 +299,54 @@ def test_push_reciprocal_is_the_ceiling_of_two_to_the_64_over_freq():
     freq = np.array([1, 2, 3, 255, 4096, 65521, 65535, 65536], np.uint64)
     want = [0] + [-(-(1 << 64) // int(f)) for f in freq[1:]]
     assert [int(m) for m in twin.push_reciprocal(freq)] == want
+
+
+def _walk_case(bits, fkind, seed):
+    """(f, slot) for the group tree walk: per-lane F over 0 .. K + 1 as a
+    table - ``monotone`` (cumulative random frequencies, F(K) = 2^16),
+    ``non-monotone`` (random words) or ``ndtr`` (the grid's own F at
+    random mu, sigma) - and slots at 0, 2^16 - 1, on F's values and one
+    below them, and random."""
+    lanes, k = 48, 1 << bits
+    rng = np.random.default_rng(seed)
+    if fkind == "ndtr":
+        mu = torch.from_numpy(rng.uniform(-8, 8, lanes).astype(np.float32))
+        sigma = torch.from_numpy(np.exp(rng.uniform(
+            np.log(1e-3), np.log(30.0), lanes)).astype(np.float32))
+        table = discretize.posterior_starts_fn(
+            mu[:, None], sigma[:, None], bits, 16)(
+                torch.arange(k + 2)[None, :]).to(torch.int64)
+    elif fkind == "monotone":
+        w = rng.integers(1, 50, (lanes, k))
+        cdf = np.concatenate([np.zeros((lanes, 1)), np.cumsum(w, 1)], 1)
+        f = np.floor(cdf / cdf[:, -1:] * ((1 << 16) - k)) + np.arange(k + 1)
+        table = torch.from_numpy(np.concatenate(
+            [f, np.full((lanes, 1), (1 << 16) + 1)], 1).astype(np.int64))
+    else:
+        table = torch.from_numpy(rng.integers(0, 1 << 16, (lanes, k + 2)))
+    slot = rng.integers(0, 1 << 16, lanes)
+    pick = rng.integers(0, k + 1, lanes)
+    on_f = table.numpy()[np.arange(lanes), pick]
+    slot[:2] = (0, (1 << 16) - 1)
+    slot[2:18] = on_f[2:18]
+    slot[18:34] = np.maximum(on_f[18:34] - 1, 0)
+    slot = torch.from_numpy(np.minimum(slot, (1 << 16) - 1))
+
+    def f(i):
+        return table.gather(1, i[:, None])[:, 0] if i.dim() == 1 \
+            else table.gather(1, i)
+    return f, slot
+
+
+@pytest.mark.parametrize("fkind", ["monotone", "non-monotone", "ndtr"])
+@pytest.mark.parametrize("group", [16, 32])
+@pytest.mark.parametrize("bits", range(1, 13))
+def test_grid_tree_walk_matches_the_bisection(bits, group, fkind):
+    """The grid pop kernel's group walk (``twin.grid_tree_walk``, round
+    for round as ``csrc/pop_grid.cu`` walks it) returns the bisection's
+    index and F at its two ends for any F, monotone or not."""
+    f, slot = _walk_case(bits, fkind, 100 * bits + group)
+    want = discretize.bisect(f, slot, bits)
+    idx, start, nxt = twin.grid_tree_walk(f, slot, bits, group)
+    assert torch.equal(idx, want)
+    assert torch.equal(start, f(want)) and torch.equal(nxt, f(want + 1))

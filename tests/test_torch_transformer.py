@@ -223,6 +223,40 @@ def test_prefill_of_2100_tokens_runs_blockwise_and_matches():
            ref_transformer.decode_step(pj, ref_cfg, nj, sj)[0], 1e-4)
 
 
+def test_stablelm_head_dim_160_prefill_of_2100_tokens_matches(monkeypatch):
+    """stablelm-12b's head dim (160: d_model 5120 over 32 heads) at
+    reduced width: a 2100-token prefill attends blockwise, the port
+    through the flash kernel's plain version on 64-key tiles (the
+    tensor-core kernel's tile above D 128), the reference through its jnp
+    online softmax. Each blockwise path is held to its own package's
+    exact softmax at float32's ``F32_TOL``. The two packages' last-token
+    logits (up to 0.57) differ by up to 2e-4 (1.6e-4 here), and by as
+    much where neither attends blockwise: the gap is between the two
+    packages' float32 layers (it grows with the head dim and the depth:
+    3e-6 at head dim 16), not in the D-160 attention path."""
+    from repro_torch.kernels import dispatch
+
+    ref_cfg, cfg = _cfgs("stablelm-12b", d_head=160)
+    assert cfg.head_dim == ref_cfg.head_dim == 160
+    with jax.threefry_partitionable(False):
+        p = ref_transformer.init(jax.random.PRNGKey(0), ref_cfg)
+    p = jax.tree_util.tree_map(np.asarray, p)
+    pj = jax.tree_util.tree_map(jnp.asarray, p)
+    pt = weights.from_jax_params(p, device="cpu")
+    s = 2100
+    tj, tt = _toks((1, s), seed=5)
+    lj, _ = ref_transformer.prefill(pj, ref_cfg, {"tokens": tj}, s)
+    lt, _ = transformer.prefill(pt, cfg, {"tokens": tt}, s)
+    with dispatch.use_backend("ref"):
+        exact, _ = transformer.prefill(pt, cfg, {"tokens": tt}, s)
+    monkeypatch.setattr(ref_attention, "BLOCKWISE_THRESHOLD", s + 1)
+    lj_exact, _ = ref_transformer.prefill(pj, ref_cfg, {"tokens": tj}, s)
+    _close(lt, exact, F32_TOL)
+    _close(lj, lj_exact, F32_TOL)
+    _close(lt, lj, 2e-4)
+    _close(exact, lj_exact, 2e-4)
+
+
 @pytest.mark.parametrize("start", ["prefill", "empty"])
 def test_int8_kv_cache_matches_the_reference(start):
     arch = "qwen2-0.5b"

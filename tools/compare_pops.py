@@ -1,0 +1,132 @@
+#!/usr/bin/env python3
+"""Time the grid and dyntable pop kernels of two checkouts of this repo on
+one GPU, in turns, and check that both write the same outputs.
+
+    python3 tools/compare_pops.py OTHER [--reps 20]
+
+OTHER is the root of another checkout, e.g. a ``git archive`` of the
+parent commit unpacked into ``build/parent``. Each turn is a process of
+its own that imports ``repro_torch`` from one checkout's ``src``, builds
+that checkout's kernels into its ``build/kernels`` and calls its public
+wrappers (``kernels.ans.kernel.pop_grid_emit``, ``pop_dyntable_emit``),
+so the two checkouts' bindings may differ. The turns run OTHER, this,
+this, OTHER. The inputs are ``chip_smoke.py``'s phase 3 draws: the
+gaussian and logistic grid pops at 4096 lanes x 40 steps (lat_bits 10),
+the gaussian at 32 lanes x 392 steps (phase 13's first level), the
+dyntable pop at 4096 and 32 lanes x 784 steps (A+1 = 3). Times are
+CUDA-event means over ``--reps`` runs after a warm-up. Prints the card,
+a line a case, and a JSON object of the times last; exits non-zero when
+the outputs differ.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import subprocess
+import sys
+import tempfile
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def worker(src: str, out: str, reps: int) -> None:
+    """One turn: the cases on the ``repro_torch`` under ``src``; outputs
+    to ``out``.npz, times to ``out``.json."""
+    sys.path.insert(0, src)
+    sys.path.insert(1, ROOT)
+    import numpy as np
+
+    import chip_smoke as S
+    from repro_torch.core import discretize
+    from repro_torch.kernels.ans import kernel as K
+
+    if not K.__file__.startswith(os.path.abspath(src)):
+        raise SystemExit(f"compare_pops: imported {K.__file__}, not {src}")
+    K.build()
+    g = {k: v.cuda() for k, v in S.kernel_inputs().items()}
+    e = discretize.edge_table(10, "cuda")
+    narrow = S.grid_inputs(S.POP_NARROW, S.GRID_NARROW_STEPS, 13,
+                           edges=False)
+    n = S.POP_NARROW
+    dyn = (g["head"], g["tables"], g["feed_p"])
+    dyn_n = (g["head"][:n].contiguous(), g["tables"][:, :n].contiguous(),
+             g["feed_p"][:, :n].contiguous())
+    grid = {
+        f"gaussian {S.LANES}x40":
+            (g["head"], g["mu"], g["sigma"], g["feed_s"], "gaussian"),
+        f"gaussian {n}x{S.GRID_NARROW_STEPS}": (*narrow, "gaussian"),
+        f"logistic {S.LANES}x40":
+            (g["head"], g["mu_l"], g["scale"], g["feed_s"], "logistic")}
+    cases = {f"pop_grid_emit/{name}":
+             (lambda a=a: K.pop_grid_emit(*a[:4], e, a[4], 10, 16))
+             for name, a in grid.items()}
+    cases.update({f"pop_dyntable_emit {label}":
+                  (lambda a=a: K.pop_dyntable_emit(*a, 16))
+                  for label, a in ((f"{S.LANES}x784", dyn),
+                                   (f"{n}x784", dyn_n))})
+    times, arrays = {}, {}
+    for name, call in cases.items():
+        for i, t in enumerate(call()):
+            arrays[f"{name}/{i}"] = t.cpu().numpy()
+        times[name] = S.cuda_ms(call, reps)
+    np.savez(out + ".npz", **arrays)
+    with open(out + ".json", "w") as f:
+        json.dump(times, f)
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("other", help="root of the other checkout")
+    ap.add_argument("--reps", type=int, default=20)
+    ap.add_argument("--worker", nargs=2, metavar=("SRC", "OUT"),
+                    help=argparse.SUPPRESS)
+    a = ap.parse_args()
+    if a.worker:
+        worker(*a.worker, a.reps)
+        return 0
+    import numpy as np
+
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0]
+    print(f"card: {smi}", flush=True)
+    turns = [("other", a.other), ("this", ROOT), ("this", ROOT),
+             ("other", a.other)]
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=os.path.join(ROOT, "build")) as d:
+        res = []
+        for i, (who, root) in enumerate(turns):
+            out = os.path.join(d, f"turn{i}")
+            subprocess.run([sys.executable, os.path.abspath(__file__),
+                            a.other, "--reps", str(a.reps), "--worker",
+                            os.path.abspath(os.path.join(root, "src")),
+                            out], check=True)
+            with open(out + ".json") as f:
+                times = json.load(f)
+            with np.load(out + ".npz") as z:
+                arrays = {k: z[k] for k in z.files}
+            res.append((who, times, arrays))
+    bad = 0
+    summary = {}
+    for name in res[0][1]:
+        t = [r[1][name] for r in res]
+        diff = sum(int((r[2][k] != res[0][2][k]).sum())
+                   for r in res[1:] for k in res[0][2]
+                   if k.startswith(name + "/"))
+        bad += diff
+        other, this = (t[0] + t[3]) / 2, (t[1] + t[2]) / 2
+        summary[name] = {"other_ms": [t[0], t[3]], "this_ms": [t[1], t[2]],
+                         "this_over_other": this / other,
+                         "mismatches": diff}
+        print(f"{name}: mismatches {diff}; other {t[0]:.4f}/{t[3]:.4f} ms, "
+              f"this {t[1]:.4f}/{t[2]:.4f} ms: this / other "
+              f"{this / other:.3f}", flush=True)
+    print(json.dumps({"card": smi, "cases": summary}))
+    return 1 if bad else 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
