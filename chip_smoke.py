@@ -10,19 +10,23 @@ Phases, each on a line of its own; any failure exits non-zero:
      (``torch.utils.cpp_extension.load``; ninja runs the compilers in
      parallel);
   3. every kernel against its plain PyTorch version (``twin.py``, on the
-     same seeded inputs on the card) at 4096 lanes and the main paths'
-     step counts: mismatch count, CUDA-event time of kernel and plain
-     version, and the least time the card could take (bytes over HBM rate
-     or flops over the FP32 rate). The push also on inputs at the edges
-     of its division by reciprocal (freq 1 and 2^precision, heads near
-     2^32, precisions 16 and 12), and timed at 32 lanes; the posterior
-     bucketize also at 4097 lanes and lat_bits 12, with slots at 0 and
-     2^16 - 1, mu in [-8, 8] and sigma in [1e-3, 30]; the gaussian and
-     logistic grid pops on such inputs (heads near 2^32 besides) at 1, 3,
-     32, 130, 4096 and 4101 lanes (both group widths), and timed on
-     either side of the lane count where the launcher narrows the group;
-     the dyntable pop at A+1 = 2, 3, 13 and 257; both pops timed at 32
-     lanes and phase 13's step counts;
+     same seeded inputs on the card) at 4096 lanes and at each shape where
+     the counted paths launch it (``PATH_SHAPES``, ``BK_CASES``), timed
+     there: device time per launch (``torch.profiler``'s entries for the
+     kernel's CUDA function), beside it the time per call (host + device,
+     CUDA events), the plain version's time and the least time the card
+     could take (bytes over HBM rate or flops over the FP32 rate). The
+     push also on inputs at the edges of its division by reciprocal (freq
+     1 and 2^precision, heads near 2^32, precisions 16 and 12); the
+     posterior bucketize at 256 lanes (phase 12's), 4096, 4097 at
+     lat_bits 12 and either side of the lane count where its group
+     narrows, with slots at 0 and 2^16 - 1, mu in [-8, 8] and sigma in
+     [1e-3, 30]; the gaussian and logistic grid pops on such inputs (heads
+     near 2^32 besides) at 1, 3, 32, 130, 4096 and 4101 lanes (both group
+     widths), and timed on either side of the lane count where the
+     launcher narrows the group; the uniform pop at those lane counts x
+     392 steps with no read, a read every step (to the feed's last row)
+     and between; the dyntable pop at A+1 = 2, 3, 13 and 257;
   4. the committed golden blobs ``tests/golden/bbx1_vae_fixedpoint.bin``,
      ``bbx2_stream.bin`` and ``bbx3_corpus.bin`` re-encoded on the card
      hex for hex and decoded losslessly;
@@ -98,7 +102,9 @@ Phases, each on a line of its own; any failure exits non-zero:
 
 Each path (phases 5-14) runs with the kernel launch counts set to 0 just
 before it and read just after, and fails if one of its kernels was not
-launched.
+launched; its launches are also counted by shape. The kernels are then
+ranked by launches x (device ms - bound ms), summed over the shapes
+phase 3 timed (``ranking`` lines).
 
 The line before the last holds the per-kernel JSON record; the last line
 is ``{"ok": true, "device": {...}}``. Imports nothing of JAX or ``repro``.
@@ -146,32 +152,78 @@ CLI_IMAGES, CLI_STEPS = 8192, 4000
 # and the CPU round differently), and one differing bucket moves the
 # bits-back path, which moves the rate about as much as another seed.
 TWIN_RATE_TOL = 0.02
+# Phases 11 and 12: hvae-base2 widths on 28 x 28 digits.
+HV_LANES, HV_CHAIN = 1024, 4
+HVF_LANES, HVF_CHAIN = 256, 2
 TABLE_STEPS = CAT_BLOCK   # pop_table_emit check: one block's pops
-# The bucketize check: the HVAE's grid (lat_bits 10, precision 16) at
-# LANES, and the largest committed grid at a lane count off the block
-# size.
-BK_CASES = ((LANES, 10), (LANES + 1, 12))
+# Where the counted paths launch each coder kernel: (lanes, steps) and the
+# phases that launch it there, the most launched first. Phase 3 times each
+# kernel at each of these shapes (device time per launch, from the
+# profiler) and the first one is its record's; 4096 x 40 is no path's
+# shape but the grid pops' earlier yardstick. Phase 13 (hvae-small2 at 32
+# lanes) codes 392 latents a level over 784 pixels; phases 5, 6 and 10 the
+# 784-100-40 VAE at 1024 lanes, phase 7 at 2 shards of 512; phase 11 784
+# latents a level at 1024 lanes; phase 12 one latent position of 256
+# lanes a launch.
+PATH_SHAPES = {
+    "push_emit": (((32, 392), "13"), ((32, 784), "13"),
+                  ((1024, 784), "5, 6, 10, 11"), ((1024, 40), "5, 6, 10"),
+                  ((512, 784), "7"), ((512, 40), "7"), ((4096, 40), "9"),
+                  ((4096, CAT_BLOCK), "8")),
+    "pop_slots": (((LANES, 1), "none"),),
+    "pop_table_emit": (((CAT_LANES, CAT_BLOCK), "8"),),
+    "pop_dyntable_emit": (((32, 784), "13"), ((1024, 784), "5, 6, 10, 11"),
+                          ((512, 784), "7")),
+    "pop_grid_emit/gaussian": (((32, 392), "13"), ((1024, 40), "5, 6, 10"),
+                               ((512, 40), "7"), ((1024, 784), "11"),
+                               ((LANES, 40), "none")),
+    "pop_grid_emit/uniform": (((32, 392), "13"), ((1024, 40), "5, 6, 10"),
+                              ((512, 40), "7"), ((1024, 784), "11"),
+                              ((LANES, 40), "none")),
+    "pop_grid_emit/logistic": (((LOG_LANES, LOG_DIMS), "9"),),
+    "grid_starts/gaussian": (((HVF_LANES, 1), "12"), ((32, 392), "13"),
+                             ((1024, 40), "5, 6, 10"), ((512, 40), "7"),
+                             ((1024, 784), "11")),
+    "grid_starts/logistic": (((LOG_LANES, LOG_DIMS), "9"),),
+}
+# The CUDA function each record's wrapper launches, as the profiler names
+# it (a part of the name that other checkouts' kernels share).
+KERNEL_FN = {
+    "push_emit": "push_kernel", "pop_slots": "peek_kernel",
+    "pop_table_emit": "pop_table_kernel", "pop_dyntable_emit": "pop_dyntable",
+    "pop_grid_emit/gaussian": "pop_grid_group_kernel",
+    "pop_grid_emit/uniform": "pop_grid_uniform_kernel",
+    "pop_grid_emit/logistic": "pop_grid_group_kernel",
+    "grid_starts/gaussian": "grid_starts_kernel",
+    "grid_starts/logistic": "grid_starts_kernel",
+    "bucketize": "bucketize_kernel",
+    "flash_fwd/wgmma": "flash_fwd_wgmma_kernel",
+    "flash_fwd/simt": "flash_fwd_kernel"}
+# The bucketize at (lanes, lat_bits, phases): phase 12's 256 lanes (its
+# record), the HVAE's grid at LANES, the largest committed grid at a lane
+# count off the block size, and either side of the lane count where the
+# launcher narrows its group (BK_GROUP_EDGE: 32 threads a lane up to it,
+# 16 above).
+BK_GROUP_EDGE = 1024
+BK_CASES = ((HVF_LANES, 10, "12"), (LANES, 10, "none"),
+            (LANES + 1, 12, "none"), (BK_GROUP_EDGE, 10, "none"),
+            (BK_GROUP_EDGE + 1, 10, "none"))
 # The push's adversarial cases (lanes, steps, precision): freq 1 and
-# 2^precision among random ones, heads within 2^12 of 2^32; at 32 lanes
-# its time is phase 13's width (one block).
+# 2^precision among random ones, heads within 2^12 of 2^32.
 PUSH_EDGES = ((LANES, 784, 16), (LANES + 5, 300, 12))
-PUSH_NARROW = 32
 # The grid pops (gaussian, logistic) on edge inputs - heads near 2^32,
 # first slots 0 and 2^16 - 1, mu over [-8, 8], sigma over [1e-3, 30] -
 # at these lane counts (32 threads a lane up to 1024 gaussian or 512
 # logistic lanes, 16 above: GROUP_EDGES times each kind on either side);
-# the dyntable pop at these
-# table widths (the Bernoulli pixels' 3 and a 256-symbol Categorical's
-# 257) over steps off its staging tile. Both pops are timed at 32 lanes
-# and phase 13's step counts: the 392 latents of hvae-small2's first
-# level, the 784 pixels.
+# the uniform pop at these lane counts x 392 steps at lat_bits 0 (no
+# read), 10 and 16 (a read every step, up to the feed's last row), at
+# precisions 16 and 12; the dyntable pop at these table widths (the
+# Bernoulli pixels' 3 and a 256-symbol Categorical's 257) over steps off
+# its staging tile.
 POP_LANES = (1, 3, 32, 130, LANES, LANES + 5)
 GROUP_EDGES = {"gaussian": (1024, 1025), "logistic": (512, 513)}
-POP_NARROW, GRID_NARROW_STEPS = 32, 392
+UNIFORM_EDGES = ((0, 16), (10, 16), (16, 16), (8, 12), (12, 12))
 DYN_A1, DYN_STEPS = (2, 3, 13, 257), 70
-# Phases 11 and 12: hvae-base2 widths on 28 x 28 digits.
-HV_LANES, HV_CHAIN = 1024, 4
-HVF_LANES, HVF_CHAIN = 256, 2
 # The eager fixed-point codec and the CPU twin run every latent position
 # one after another (784 per level), so they are held to the card's
 # bytes at a few lanes over the first image.
@@ -294,6 +346,43 @@ def cuda_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
+def device_ms(fn, kernel, reps: int = 20) -> float:
+    """Mean device time in ms of one launch of the CUDA function whose
+    name holds ``kernel`` (``KERNEL_FN``), over ``reps`` calls of
+    ``fn()`` traced by ``torch.profiler`` after one warm-up call: the
+    kernel's own entries only, summed and divided by their count. Fails
+    unless the trace holds at least half as many launches as calls and
+    no more; a trace that does not is taken again, up to three times (the
+    tracer has been seen to miss one launch, and once all of them). With
+    ``kernel`` None: every kernel's and copy's device time, per call."""
+    import torch
+    from torch.profiler import ProfilerActivity
+
+    fn()
+    torch.cuda.synchronize()
+    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+    for _ in range(3):
+        with torch.profiler.profile(activities=acts) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        total, n = 0.0, 0
+        for e in prof.key_averages():
+            if e.device_type == torch.autograd.DeviceType.CUDA \
+                    and (kernel is None or kernel in e.key):
+                total += getattr(e, "self_device_time_total",
+                                 getattr(e, "self_cuda_time_total", 0))
+                n += e.count
+        if kernel is None and n:
+            return total / reps / 1e3
+        if kernel is not None and reps // 2 <= n <= reps and n:
+            break
+    else:
+        raise SystemExit(f"device_ms: {n} launches of {kernel} in {reps} "
+                         "calls, three traces running")
+    return total / n / 1e3
+
+
 def cuda_span(fn) -> tuple:
     """(``fn()``, milliseconds between CUDA events recorded just before
     and just after it)."""
@@ -321,14 +410,17 @@ def max_err(a, b) -> tuple:
     return worst, bad
 
 
-def kernel_inputs(seed: int = 0):
-    """Seeded inputs at the main paths' step counts: 784 Bernoulli pixel
-    steps (push and dyntable pop), 40 latent steps (grid pops, starts),
-    one Categorical block of 64 pops against 257-entry tables."""
+def kernel_inputs(seed: int = 0, lanes: int = LANES, steps: int = 0):
+    """Seeded inputs of ``lanes`` lanes at the main paths' step counts -
+    784 Bernoulli pixel steps (push and dyntable pop), 40 latent steps
+    (grid pops, starts), one Categorical block of 64 pops against
+    257-entry tables - or, when ``steps`` is given, at ``steps`` for
+    every kernel."""
     import numpy as np
     import torch
     rng = np.random.default_rng(seed)
-    L, P, S = LANES, 784, 40
+    L = lanes
+    P, S, TS = (steps,) * 3 if steps else (784, 40, TABLE_STEPS)
     head = torch.from_numpy(rng.integers(1 << 16, 1 << 32, L,
                                          dtype=np.int64))
     f1 = rng.integers(1, (1 << 16) - 1, (P, L))
@@ -348,9 +440,9 @@ def kernel_inputs(seed: int = 0):
     cdf = np.floor(np.cumsum(w, 1) / w.sum(1, keepdims=True) * (1 << 16))
     table = np.concatenate([np.zeros((L, 1)), cdf], 1)
     table[:, -1] = 1 << 16
-    feed_t = rng.integers(0, 1 << 16, (TABLE_STEPS, L))
+    feed_t = rng.integers(0, 1 << 16, (TS, L))
     i32 = lambda a: torch.from_numpy(np.ascontiguousarray(a, np.int32))
-    mu_l, scale = logistic_params(L)
+    mu_l, scale = logistic_params(L, S)
     return {"head": head, "starts": i32(starts), "freqs": i32(freqs),
             "tables": i32(tables), "feed_p": i32(feed_p),
             "feed_s": i32(feed_s), "mu": torch.from_numpy(mu),
@@ -360,13 +452,13 @@ def kernel_inputs(seed: int = 0):
             "scale": torch.from_numpy(scale.T.copy())}
 
 
-def logistic_params(lanes: int):
-    """Phase 9's logistic parameters, (mu, scale) float32[lanes, 40] from
-    numpy seed 9, scale in [0.05, 2]."""
+def logistic_params(lanes: int, dims: int = LOG_DIMS):
+    """Phase 9's logistic parameters, (mu, scale) float32[lanes, dims]
+    from numpy seed 9, scale in [0.05, 2]."""
     import numpy as np
     rng = np.random.default_rng(9)
-    mu = rng.normal(0.0, 1.0, (lanes, LOG_DIMS)).astype(np.float32)
-    scale = rng.uniform(0.05, 2.0, (lanes, LOG_DIMS)).astype(np.float32)
+    mu = rng.normal(0.0, 1.0, (lanes, dims)).astype(np.float32)
+    scale = rng.uniform(0.05, 2.0, (lanes, dims)).astype(np.float32)
     return mu, scale
 
 
@@ -396,10 +488,12 @@ def run(mod, name: str, d, e):
     return mod.grid_starts(d["idx"], d["mu"], d["sigma"], e, 10, 16)
 
 
-def work(name: str, out) -> tuple:
-    """(bytes, flops) the call must move and do: each input read once,
-    each output written once; the feed counted as far as it was read."""
-    L, P, S = LANES, 784, 40
+def work(name: str, d, out) -> tuple:
+    """(bytes, flops) the call of kernel ``name`` on inputs ``d`` must move
+    and do: each input read once, each output written once; the feed
+    counted as far as it was read."""
+    L = d["head"].shape[0]
+    P, S, TS = (d[k].shape[0] for k in ("feed_p", "feed_s", "feed_t"))
     reads = 4 * int(out[2].sum()) \
         if name.startswith("pop") and name != "pop_slots" else 0
     if name == "push_emit":
@@ -407,7 +501,7 @@ def work(name: str, out) -> tuple:
     if name == "pop_slots":
         return 12 * L, 0
     if name == "pop_table_emit":
-        return 4 * (CAT_A + 1) * L + 4 * TABLE_STEPS * L + reads + 20 * L, 0
+        return 4 * (CAT_A + 1) * L + 4 * TS * L + reads + 20 * L, 0
     if name == "pop_dyntable_emit":
         return 12 * P * L + 4 * P * L + reads + 20 * L, 0
     if name.startswith("pop_grid_emit/") and not name.endswith("uniform"):
@@ -422,32 +516,73 @@ def work(name: str, out) -> tuple:
     return 20 * S * L + 4 * 1025, 2 * per_f * S * L
 
 
+def shape_key(name: str, lanes: int, steps: int) -> str:
+    """How ``watch_shapes`` names a coder kernel's launch shape."""
+    return f"{lanes}" if name == "pop_slots" else f"{lanes}x{steps}"
+
+
+def time_shape(name: str, lanes: int, steps: int, paths: str, e) -> dict:
+    """Kernel ``name`` at ``lanes`` x ``steps`` against its plain version,
+    and its device time per launch there beside its time per call (host
+    and device) and its bound."""
+    from repro_torch.kernels.ans import kernel as K
+    from repro_torch.kernels.ans import twin as T
+
+    d = {k: v.cuda() for k, v in kernel_inputs(lanes + steps, lanes,
+                                                  steps).items()}
+    got = run(K, name, d, e)
+    want, plain_ms = cuda_span(lambda: run(T, name, d, e))
+    worst, bad = max_err(got, want)
+    call = lambda: run(K, name, d, e)
+    shape = {"shape": shape_key(name, lanes, steps), "paths": paths,
+             "ms": device_ms(call, KERNEL_FN[name]),
+             "call_ms": cuda_ms(call, 20), "plain_ms": plain_ms,
+             "mismatches": bad, "max_abs_err": worst}
+    shape.update(bound(*work(name, d, got)))
+    say(f"phase 3: {name} at {shape['shape']} (phases {paths}): "
+        f"mismatches {bad}, device {shape['ms']:.4f} ms a launch, per call "
+        f"(host + device) {shape['call_ms']:.4f} ms, plain "
+        f"{plain_ms:.2f} ms, bound {shape['bound_ms']:.5f} ms "
+        f"({shape['bound_by']})")
+    return shape
+
+
+def bound(nbytes: int, flops: int, flop_rate: float = FP32_FLOPS) -> dict:
+    """The least time the card could take: bytes over the HBM rate or
+    flops over ``flop_rate``, whichever is longer."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / flop_rate * 1e3
+    return {"bound_ms": max(t_bytes, t_ops),
+            "bound_by": "operations" if t_ops > t_bytes else "bytes"}
+
+
 def check_kernels():
     """Phase 3: each kernel vs its plain version on the same inputs on the
-    card; returns records."""
+    card, at LANES and at its paths' shapes (``PATH_SHAPES``, where it is
+    timed); returns records."""
     from repro_torch.core import discretize
     from repro_torch.kernels.ans import kernel as K
     from repro_torch.kernels.ans import twin as T
 
     gpu = {k: v.cuda() for k, v in kernel_inputs().items()}
     e_gpu = discretize.edge_table(10, "cuda")
-    records, failed = [], False
+    records, bad_all = [], 0
     for name in REPLACES:
         if name == "bucketize" or name.startswith("flash_fwd"):
             continue
-        got = run(K, name, gpu, e_gpu)
-        worst, bad = max_err(got, run(T, name, gpu, e_gpu))
-        ms = cuda_ms(lambda: run(K, name, gpu, e_gpu), 20)
-        plain_ms = cuda_span(lambda: run(T, name, gpu, e_gpu))[1]
-        records.append(record(name, worst, bad, ms, plain_ms,
-                              *work(name, got)))
-        failed |= bad != 0
-    failed |= check_push(next(r for r in records
-                              if r["name"] == "push_emit"), gpu) != 0
-    failed |= check_pops({r["name"]: r for r in records}, gpu, e_gpu) != 0
+        worst, bad = max_err(run(K, name, gpu, e_gpu),
+                             run(T, name, gpu, e_gpu))
+        say(f"phase 3: {name} at {LANES} lanes: mismatches {bad}, "
+            f"max_abs_err {worst}")
+        shapes = [time_shape(name, lanes, steps, paths, e_gpu)
+                  for (lanes, steps), paths in PATH_SHAPES[name]]
+        records.append(record(name, worst, shapes))
+        bad_all += bad + sum(sh["mismatches"] for sh in shapes)
+    bad_all += check_push()
+    bad_all += check_pops({r["name"]: r for r in records}, e_gpu)
     rec, bad = check_bucketize()
     records.append(rec)
-    if failed or bad:
+    if bad_all or bad:
         raise SystemExit("phase 3: a kernel disagrees with its plain version")
     return records
 
@@ -471,10 +606,9 @@ def push_edges(lanes: int, steps: int, precision: int):
             i32(start).cuda(), i32(freq).cuda())
 
 
-def check_push(rec: dict, gpu: dict) -> int:
-    """Phase 3's push beyond its record: the adversarial inputs of
-    ``PUSH_EDGES`` bit for bit against the plain version, and the time at
-    ``PUSH_NARROW`` lanes (kept in ``rec`` as ``ms_narrow``); returns the
+def check_push() -> int:
+    """Phase 3's push beyond its shapes: the adversarial inputs of
+    ``PUSH_EDGES`` bit for bit against the plain version; returns the
     mismatch count."""
     from repro_torch.kernels.ans import kernel as K
     from repro_torch.kernels.ans import twin as T
@@ -487,15 +621,7 @@ def check_push(rec: dict, gpu: dict) -> int:
             f"precision {precision}, freq 1 and 2^{precision}, heads near "
             f"2^32): mismatches {bad}, max_abs_err {worst}")
         bad_all += bad
-    narrow = (gpu["head"][:PUSH_NARROW].contiguous(),
-              gpu["starts"][:, :PUSH_NARROW].contiguous(),
-              gpu["freqs"][:, :PUSH_NARROW].contiguous(), 16)
-    worst, bad = max_err(K.push_emit(*narrow), T.push_emit(*narrow))
-    rec["ms_narrow"] = cuda_ms(lambda: K.push_emit(*narrow), 50)
-    say(f"phase 3: push_emit at {PUSH_NARROW} lanes x 784 steps: "
-        f"mismatches {bad}, kernel {rec['ms_narrow']:.4f} ms, bound "
-        f"{16 * 784 * PUSH_NARROW / HBM_BYTES_PER_S * 1e3:.5f} ms (bytes)")
-    return bad_all + bad
+    return bad_all
 
 
 def grid_inputs(lanes: int, steps: int, seed: int, edges: bool):
@@ -547,13 +673,13 @@ def dyn_inputs(lanes: int, steps: int, a1: int, seed: int):
     return torch.from_numpy(head).cuda(), i32(tables), i32(feed)
 
 
-def check_pops(recs: dict, gpu: dict, e) -> int:
-    """Phase 3's grid and dyntable pops beyond their records: the grid
-    pops on edge inputs at ``POP_LANES``, bit for bit, and each kind's
-    time at 40 steps on either side of its group's threshold
-    (``GROUP_EDGES``, kept as ``ms_by_lanes``); the dyntable pop at the
-    widths of ``DYN_A1``; both timed at ``POP_NARROW`` lanes
-    (``ms_narrow``). Returns the mismatch count."""
+def check_pops(recs: dict, e) -> int:
+    """Phase 3's grid and dyntable pops beyond their shapes: the grid pops
+    on edge inputs at ``POP_LANES``, bit for bit, and each CDF kind's
+    device time at 40 steps on either side of its group's threshold
+    (``GROUP_EDGES``, kept as ``ms_by_lanes``); the uniform pop at
+    ``POP_LANES`` x 392 steps over ``UNIFORM_EDGES``; the dyntable pop at
+    the widths of ``DYN_A1``. Returns the mismatch count."""
     from repro_torch.kernels.ans import kernel as K
     from repro_torch.kernels.ans import twin as T
 
@@ -574,55 +700,50 @@ def check_pops(recs: dict, gpu: dict, e) -> int:
             bad = max_err(call(), T.pop_grid_emit(*args, e, kind, 10,
                                                   16))[1]
             bad_all += bad
-            rec["ms_by_lanes"][lanes] = cuda_ms(call, 20)
+            rec["ms_by_lanes"][lanes] = device_ms(call,
+                                                  KERNEL_FN[rec["name"]])
             say(f"phase 3: pop_grid_emit/{kind} at {lanes} lanes x 40 "
-                f"steps: mismatches {bad}, kernel "
-                f"{rec['ms_by_lanes'][lanes]:.4f} ms")
-    narrow = grid_inputs(POP_NARROW, GRID_NARROW_STEPS, 13, edges=False)
-    rec = recs["pop_grid_emit/gaussian"]
-    bad = max_err(K.pop_grid_emit(*narrow, e, "gaussian", 10, 16),
-                  T.pop_grid_emit(*narrow, e, "gaussian", 10, 16))[1]
-    bad_all += bad
-    rec["ms_narrow"] = cuda_ms(lambda: K.pop_grid_emit(
-        *narrow, e, "gaussian", 10, 16), 20)
-    say(f"phase 3: pop_grid_emit/gaussian at {POP_NARROW} lanes x "
-        f"{GRID_NARROW_STEPS} steps: mismatches {bad}, kernel "
-        f"{rec['ms_narrow']:.4f} ms")
+                f"steps: mismatches {bad}, device "
+                f"{rec['ms_by_lanes'][lanes]:.4f} ms a launch")
+    for lanes in POP_LANES:
+        for lat_bits, precision in UNIFORM_EDGES:
+            head, _, _, feed = grid_inputs(lanes, 392, lanes + lat_bits,
+                                           edges=True)
+            args = (head, None, None, feed, None, "uniform", lat_bits,
+                    precision)
+            want = T.pop_grid_emit(*args)
+            bad = max_err(K.pop_grid_emit(*args), want)[1]
+            say(f"phase 3: pop_grid_emit/uniform edges ({lanes} lanes x "
+                f"392 steps, lat_bits {lat_bits}, precision {precision}: "
+                f"{int(want[2].min())}-{int(want[2].max())} reads a lane): "
+                f"mismatches {bad}")
+            bad_all += bad
     for a1 in DYN_A1:
-        for lanes in (POP_NARROW + 1, LANES + 5):
+        for lanes in (33, LANES + 5):
             args = dyn_inputs(lanes, DYN_STEPS, a1, lanes + a1)
-            worst, bad = max_err(K.pop_dyntable_emit(*args, 16),
-                                 T.pop_dyntable_emit(*args, 16))
+            bad = max_err(K.pop_dyntable_emit(*args, 16),
+                          T.pop_dyntable_emit(*args, 16))[1]
             say(f"phase 3: pop_dyntable_emit A+1 = {a1} ({lanes} lanes x "
                 f"{DYN_STEPS} steps): mismatches {bad}")
             bad_all += bad
-    narrow = (gpu["head"][:POP_NARROW].contiguous(),
-              gpu["tables"][:, :POP_NARROW].contiguous(),
-              gpu["feed_p"][:, :POP_NARROW].contiguous(), 16)
-    worst, bad = max_err(K.pop_dyntable_emit(*narrow),
-                         T.pop_dyntable_emit(*narrow))
-    bad_all += bad
-    rec = recs["pop_dyntable_emit"]
-    rec["ms_narrow"] = cuda_ms(lambda: K.pop_dyntable_emit(*narrow), 20)
-    say(f"phase 3: pop_dyntable_emit at {POP_NARROW} lanes x 784 steps: "
-        f"mismatches {bad}, kernel {rec['ms_narrow']:.4f} ms")
     return bad_all
 
 
-def record(name: str, worst: int, bad: int, ms: float, plain_ms: float,
-           nbytes: int, flops: int, note: str = "") -> dict:
-    """Phase 3's record of kernel ``name`` and its line."""
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / FP32_FLOPS * 1e3
+def record(name: str, worst: int, shapes: list) -> dict:
+    """Phase 3's record of kernel ``name``: its first shape's numbers (the
+    paths' most launched), all shapes under ``shapes``."""
+    first = shapes[0]
     rec = {"name": name, "route": "cuda", "source": SOURCES[name],
            "replaces": REPLACES[name], "launches": 0,
-           "max_abs_err": worst, "ms": ms, "plain_ms": plain_ms,
-           "bound_ms": max(t_bytes, t_ops),
-           "bound_by": "operations" if t_ops > t_bytes else "bytes",
-           "library_ms": None}
-    say(f"phase 3: {name}{note}: mismatches {bad}, max_abs_err {worst}, "
-        f"kernel {ms:.4f} ms, plain {plain_ms:.2f} ms, bound "
-        f"{rec['bound_ms']:.5f} ms ({rec['bound_by']})")
+           "max_abs_err": max([worst] +
+                              [sh["max_abs_err"] for sh in shapes]),
+           "ms": first["ms"], "call_ms": first["call_ms"],
+           "plain_ms": first["plain_ms"], "bound_ms": first["bound_ms"],
+           "bound_by": first["bound_by"], "library_ms": None,
+           "shape": first["shape"], "shapes": shapes}
+    say(f"phase 3: {name} at {first['shape']}: device "
+        f"{rec['ms']:.4f} ms a launch, bound {rec['bound_ms']:.5f} ms "
+        f"({rec['bound_by']})")
     return rec
 
 
@@ -646,30 +767,38 @@ def bucketize_inputs(lanes: int):
 
 def check_bucketize() -> tuple:
     """Phase 3 for the posterior bucketize: each of ``BK_CASES`` against
-    the plain version; returns (the record of the first case, the
-    mismatch count over all)."""
+    the plain version, and timed; returns (the record, the mismatch count
+    over all)."""
     from repro_torch.core import discretize
     from repro_torch.kernels.bucketize import kernel as BK
     from repro_torch.kernels.bucketize import twin as BT
 
-    first, bad_all = None, 0
-    for lanes, lat_bits in BK_CASES:
+    shapes, bad_all, worst_all = [], 0, 0
+    for lanes, lat_bits, paths in BK_CASES:
         slot, mu, sigma = bucketize_inputs(lanes)
         edges = discretize.edge_table(lat_bits, "cuda")
         call = lambda mod: mod.bucketize(slot, mu, sigma, edges, lat_bits,
                                          16)
-        worst, bad = max_err(call(BK), call(BT))
-        ms = cuda_ms(lambda: call(BK), 20)
-        plain_ms = cuda_span(lambda: call(BT))[1]
+        want, plain_ms = cuda_span(lambda: call(BT))
+        worst, bad = max_err(call(BK), want)
+        shape = {"shape": f"{lanes}, lat_bits {lat_bits}", "paths": paths,
+                 "ms": device_ms(lambda: call(BK), KERNEL_FN["bucketize"]),
+                 "call_ms": cuda_ms(lambda: call(BK), 20),
+                 "plain_ms": plain_ms, "mismatches": bad,
+                 "max_abs_err": worst}
         # Each lane reads slot, mu, sigma and writes idx, start, freq;
         # lat_bits + 1 bisection steps and the two ends evaluate F.
-        rec = record("bucketize", worst, bad, ms, plain_ms,
-                     24 * lanes + 4 * ((1 << lat_bits) + 1),
-                     (lat_bits + 3) * FLOPS_PER_F * lanes,
-                     f" ({lanes} lanes, lat_bits {lat_bits})")
-        first = first or rec
+        shape.update(bound(24 * lanes + 4 * ((1 << lat_bits) + 1),
+                           (lat_bits + 3) * FLOPS_PER_F * lanes))
+        say(f"phase 3: bucketize at {lanes} lanes, lat_bits {lat_bits} "
+            f"(phases {paths}): mismatches {bad}, max_abs_err {worst}, "
+            f"device {shape['ms']:.4f} ms a launch, per call (host + "
+            f"device) {shape['call_ms']:.4f} ms, plain {plain_ms:.2f} ms, "
+            f"bound {shape['bound_ms']:.5f} ms ({shape['bound_by']})")
+        shapes.append(shape)
         bad_all += bad
-    return first, bad_all
+        worst_all = max(worst_all, worst)
+    return record("bucketize", worst_all, shapes), bad_all
 
 
 def golden_vae(device: str):
@@ -733,16 +862,70 @@ def check_golden() -> None:
         raise SystemExit("phase 4 failed")
 
 
+# Launches by kernel and shape since the last ``counted`` reset (filled
+# by ``watch_shapes``), and those of every counted path.
+SHAPES: dict = {}
+PATH_SHAPES_SEEN: list = []
+# The wrapper argument that holds [steps, lanes]: the push's starts, the
+# pops' feed (the CDF grid pop's mu).
+STEPS_ARG = {"push_emit": 0, "pop_table_emit": 1, "pop_dyntable_emit": 1,
+             "pop_grid_uniform": 0, "pop_grid_cdf": 0}
+
+
+def flash_shape(q) -> str:
+    """How ``watch_shapes`` names a flash launch: q's [BH, S, D], dtype."""
+    return "x".join(map(str, q.shape)) + " " + \
+        str(q.dtype).removeprefix("torch.")
+
+
+def launch_shape(fn: str, head, args) -> str:
+    """The shape of a launch of extension function ``fn`` on ``head`` and
+    ``args``, named as phase 3 names its timed shapes."""
+    if fn == "bucketize":
+        return f"{head.shape[0]}, lat_bits {args[3]}"
+    if fn == "flash_fwd":
+        return flash_shape(head)
+    if fn == "pop_slots":
+        return f"{head.shape[0]}"
+    steps, lanes = (head if fn == "grid_starts" else args[STEPS_ARG[fn]]) \
+        .shape[:2]
+    return f"{lanes}x{steps}"
+
+
+def watch_shapes() -> None:
+    """Wrap ``kernel.launch`` so that each counted launch is also counted
+    by shape in ``SHAPES``; the counts in ``LAUNCHES`` are the wrapper's
+    own, as before."""
+    from repro_torch.kernels.ans import kernel as K
+
+    launch = K.launch
+
+    def watched(counter, fn, head, *args):
+        out = launch(counter, fn, head, *args)
+        if head.numel():
+            key = launch_shape(fn, head, args)
+            for name in (counter,) if isinstance(counter, str) else counter:
+                by = SHAPES.setdefault(name, {})
+                by[key] = by.get(key, 0) + 1
+        return out
+
+    K.launch = watched
+
+
 def counted(phase: str, kernels, fn):
     """``fn()`` with the launch counts set to 0 just before and read just
     after; fails when one of ``kernels`` was not launched. Returns
-    (``fn()``'s result, the counts)."""
+    (``fn()``'s result, the counts); the counts by shape are kept in
+    ``PATH_SHAPES_SEEN``."""
     from repro_torch.kernels.ans import kernel as K
 
     K.reset_launches()
+    SHAPES.clear()
     out = fn()
     launches = dict(K.LAUNCHES)
+    PATH_SHAPES_SEEN.append({k: dict(v) for k, v in SHAPES.items()})
     say(f"{phase}: launches {json.dumps(launches)}")
+    say(f"{phase}: launches by shape {json.dumps(SHAPES)}")
     missing = [k for k in kernels if not launches[k]]
     if missing:
         raise SystemExit(f"{phase}: kernels not launched: {missing}")
@@ -1264,14 +1447,15 @@ def check_flash(q, k, v, *, causal: bool, window: int, label: str
     # allclose with rtol = atol = tol: outputs of layer 0 reach tens, where
     # one bfloat16 ulp is 0.25
     ratio = float((diff / (tol + tol * want.float().abs())).max())
-    ms = cuda_ms(lambda: FK.flash_fwd(q, k, v, **kw), 10)
+    call = lambda: FK.flash_fwd(q, k, v, **kw)
+    ms, call_ms = device_ms(call, KERNEL_FN[name], 10), cuda_ms(call, 10)
     bh, sq, d = q.shape
     bkv, sk = k.shape[:2]
     bound_ms, bound_by = flash_bound(bh, bkv, sq, sk, d, q.element_size(),
                                      causal, window)
     # SDPA on [1, BH, S, D] with the key heads repeated and, for a window,
     # the mask built (both outside the timed call): the library column
-    # only.
+    # only, the device time of all its kernels a call.
     g = bh // bkv
     q4, k4, v4 = (t[None] for t in (q, k.repeat_interleave(g, 0),
                                     v.repeat_interleave(g, 0)))
@@ -1280,21 +1464,29 @@ def check_flash(q, k, v, *, causal: bool, window: int, label: str
         i = torch.arange(sq, device=q.device)[:, None]
         j = torch.arange(sk, device=q.device)[None, :]
         mask = (j > i - window) & ((j <= i) if causal else True)
-    library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
-        q4, k4, v4, attn_mask=mask, is_causal=causal and mask is None), 10)
+    library_ms = device_ms(lambda: F.scaled_dot_product_attention(
+        q4, k4, v4, attn_mask=mask, is_causal=causal and mask is None),
+        None, 10)
     say(f"phase 14: {name} {label} ({bh} heads on {bkv} key heads, "
         f"{sq} x {sk}, D {d}, {q.dtype}, causal {causal}, window {window}): "
         f"max_abs_err {worst:.3g} at |out| up to "
         f"{float(want.float().abs().max()):.3g} (rtol = atol = {tol}: "
-        f"{ratio:.3g} of it), kernel {ms:.4f} ms, plain {plain_ms:.2f} ms, "
-        f"SDPA {library_ms:.4f} ms, bound {bound_ms:.5f} ms ({bound_by})")
+        f"{ratio:.3g} of it), device {ms:.4f} ms a launch, per call (host "
+        f"+ device) {call_ms:.4f} ms, plain {plain_ms:.2f} ms, SDPA "
+        f"{library_ms:.4f} ms, bound {bound_ms:.5f} ms ({bound_by})")
     if not ratio <= 1.0:
         raise SystemExit("phase 14: the flash kernel disagrees with its "
                          "plain version")
+    shape = {"shape": flash_shape(q), "paths": "14", "ms": ms,
+             "call_ms": call_ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+             "bound_by": bound_by, "library_ms": library_ms,
+             "max_abs_err": worst}
     return {"name": name, "route": "cuda", "source": SOURCES[name],
             "replaces": REPLACES[name], "launches": 0, "max_abs_err": worst,
-            "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-            "bound_by": bound_by, "library_ms": library_ms}
+            "ms": ms, "call_ms": call_ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": library_ms, "shape": shape["shape"],
+            "shapes": [shape]}
 
 
 def lm_twin_check() -> dict:
@@ -1477,8 +1669,10 @@ def stablelm_path(card: str, records: list) -> dict:
     del q, k, v
     for rec in (d160, d160_f32):
         by_name[rec["name"]]["d160"] = {
-            key: rec[key] for key in ("max_abs_err", "ms", "plain_ms",
-                                      "bound_ms", "bound_by", "library_ms")}
+            key: rec[key] for key in ("max_abs_err", "ms", "call_ms",
+                                      "plain_ms", "bound_ms", "bound_by",
+                                      "library_ms")}
+        by_name[rec["name"]]["shapes"] += rec["shapes"]
 
     generate = lambda: eng.generate(prompts, LM_NEW)
     (first, gen_ms), launches = counted(f"phase 14 {SLM_ARCH}", LM_KERNELS,
@@ -1603,6 +1797,30 @@ def profile(label: str, encode, decode) -> int:
     return nonzero
 
 
+def rank(records: list) -> None:
+    """The kernels ranked by the device time their counted launches spend
+    above their bound: launches x (device ms - bound ms), summed over the
+    shapes phase 3 timed (``gap_ms``); launches at shapes it did not time
+    are counted apart (``untimed_launches``)."""
+    for rec in records:
+        by_shape = {}
+        for seen in PATH_SHAPES_SEEN:
+            for key, n in seen.get(rec["name"], {}).items():
+                by_shape[key] = by_shape.get(key, 0) + n
+        timed = {sh["shape"]: sh for sh in rec.get("shapes", [])}
+        rec["launches_by_shape"] = by_shape
+        rec["gap_ms"] = sum(n * (timed[k]["ms"] - timed[k]["bound_ms"])
+                            for k, n in by_shape.items() if k in timed)
+        rec["untimed_launches"] = sum(n for k, n in by_shape.items()
+                                      if k not in timed)
+    for i, rec in enumerate(sorted(records, key=lambda r: -r["gap_ms"])):
+        say(f"ranking {i + 1}: {rec['name']}: {rec['gap_ms']:.3f} ms above "
+            f"its bound over {rec['launches']} launches ("
+            + ", ".join(f"{k}: {n}" for k, n in
+                        rec["launches_by_shape"].items())
+            + f"; {rec['untimed_launches']} at shapes not timed)")
+
+
 def main() -> int:
     try:
         import torch
@@ -1628,6 +1846,7 @@ def main() -> int:
     say(f"phase 1: torch {torch.__version__}, CUDA {torch.version.cuda}, "
         f"{torch.cuda.get_device_name(0)}")
 
+    watch_shapes()
     t0 = time.perf_counter()
     K.build()
     say(f"phase 2: built {len(K.SOURCES)} kernels in "
@@ -1681,6 +1900,7 @@ def main() -> int:
                   if c[rec["name"]]}
         rec["launches"] = sum(counts.values())
         rec["launches_by_path"] = counts
+    rank(records)
     say(f"card: {smi}")
     say(json.dumps({"kernels": records}))
     say(json.dumps({"ok": True, "device": {

@@ -13,8 +13,9 @@
 // card waiting on that chain's latency (0.19 ms for 4096 lanes x 40 steps
 // on an H100, 58x the flops' bound).
 //
-// Design: a group of G threads (16 or 32, one warp or half of one) walks the bisection's own tree a lane (../../common/group_walk.cuh):
-// one F evaluation a thread a round, the group's comparisons in one
+// Design: a group of G threads (16 or 32, one warp or half of one) walks
+// the bisection's own tree a lane (../../common/group_walk.cuh): one F
+// evaluation a thread a round, the group's comparisons in one
 // ballot, the leaf that log2 G levels of the tree reach found by a second
 // ballot, and F(idx), F(idx+1) shuffled from the last round's probes.
 // The top round does not depend on the slot, so helper warps evaluate it
@@ -27,11 +28,19 @@
 // points that the walk does not take: at few lanes only the latency
 // counts and G = 32 wins; at many, the card's issue rate counts too
 // (group_for).
-// F is evaluated by the same xla_ndtr::grid_start / xla_math::
-// logistic_start calls as bucketize.cu's one-thread bisection, so every
-// F(i) is bit-identical and the walk makes the same decisions.
+// F is evaluated by the same arithmetic (xla_ndtr::grid_start_from,
+// xla_math::logistic_start) as bucketize.cu's walk of the same tree, so
+// every F(i) is bit-identical and the walks make the same decisions.
 //
-// Uniform: a shift, no CDF, one thread a lane.
+// Uniform: a shift, no CDF. A step is a few integer operations, so what
+// bounds it on an H100 is its read: a step that refills needs feed[r, l],
+// at an address the lane's own history of refills sets, in the same step,
+// and a device-memory read there puts a round trip on the chain each time
+// (some 245 in a row a lane at 32 lanes x 392 steps, on one SM). The
+// words a lane reads are rows r, r + 1, ... of its own column whatever the
+// data, so a helper warp stages them in shared memory ahead of the reads
+// (pop_grid_uniform_kernel), and the chain touches only registers and
+// shared memory.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -44,7 +53,6 @@ enum GridKind { kUniform = 0, kGaussian = 1, kLogistic = 2 };
 
 namespace {
 
-constexpr int THREADS = 128;  // the uniform kind's blocks
 constexpr int T = 2;          // steps a tile of top rounds
 constexpr int STAGES = 8;
 
@@ -294,33 +302,185 @@ __global__ void __launch_bounds__(Layout<G>::THREADS)
   }
 }
 
-__global__ void pop_grid_uniform_kernel(const int64_t* __restrict__ head,
-                                        const int32_t* __restrict__ feed,
-                                        int64_t* __restrict__ out_head,
-                                        int32_t* __restrict__ idx_out,
-                                        int32_t* __restrict__ reads,
-                                        int steps, int lanes, int lat_bits,
-                                        int precision) {
-  int l = blockIdx.x * blockDim.x + threadIdx.x;
-  if (l >= lanes) return;
+// The uniform kind: blocks of U_LANES = 32 lanes, one chain warp (one
+// lane a thread) and one helper warp. The helper keeps the next feed rows
+// of the block's lanes in a shared-memory ring (row y of the block, 128
+// coalesced bytes, in slot y % U_RING, by cp.async) ahead of the lanes'
+// reads, and writes each walked tile's indices out, in 16-byte chunks
+// where the rows are 16-byte aligned. The chain holds each lane's next
+// feed word in a register and loads the one after it from the ring at
+// the top of every step, and leaves its indices in shared memory, so a
+// step waits on no device memory and takes no branch. A tile whose reads
+// the ring does not hold yet (lanes whose reads run further apart than
+// the ring allows, or the last, short tile) is walked by a loop that
+// tests each read and takes a word the ring lacks from device memory.
+constexpr int U_LANES = 32;
+constexpr int U_THREADS = 64;
+constexpr int U_T = 32;       // steps a tile
+constexpr int U_STAGES = 3;   // tiles of indices in flight
+constexpr int U_RING = 256;   // feed rows in shared memory (a power of 2)
+
+__device__ __forceinline__ void copy4(void* dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src)
+               : "memory");
+}
+
+__device__ __forceinline__ void copy16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src)
+               : "memory");
+}
+
+__global__ void __launch_bounds__(U_THREADS)
+    pop_grid_uniform_kernel(const int64_t* __restrict__ head,
+                            const int32_t* __restrict__ feed,
+                            int64_t* __restrict__ out_head,
+                            int32_t* __restrict__ idx_out,
+                            int32_t* __restrict__ reads, int steps,
+                            int lanes, int lat_bits, int precision) {
+  __shared__ uint64_t full[U_STAGES], empty[U_STAGES];
+  __shared__ __align__(16) int32_t outs[U_STAGES][U_T][U_LANES];
+  __shared__ __align__(16) uint32_t ring[U_RING][U_LANES];
+  // Per stage: the chain's least read count after the tile, and the feed
+  // rows the ring holds for it.
+  __shared__ int least[U_STAGES], held[U_STAGES];
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int l0 = blockIdx.x * U_LANES;
+  const int nl = min(U_LANES, lanes - l0);  // lanes of this block
+  const int l = l0 + lane;
+  const bool live = lane < nl;
+  const int tiles = (steps + U_T - 1) / U_T;
+  // A whole block whose rows are 16-byte aligned moves them in 16-byte
+  // chunks, 8 a row.
+  const bool wide = nl == U_LANES && lanes % 4 == 0 &&
+                    reinterpret_cast<uintptr_t>(feed) % 16 == 0 &&
+                    reinterpret_cast<uintptr_t>(idx_out) % 16 == 0;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < U_STAGES; ++s) {
+      bar_init(&full[s], 1);
+      bar_init(&empty[s], 1);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (warp > 0) {
+    // The helper. Before tile j is released to the chain, the ring holds
+    // the feed rows below held[j % U_STAGES]: the first 2 U_T rows for
+    // tile 0, the whole ring for tile 1, then, for tile j, rows up to
+    // U_RING past the chain's least read count after tile j - U_STAGES
+    // (the slots of the rows every lane has read). One cp.async group a
+    // tile.
+    int filled = 0;  // feed rows issued into the ring
+    auto refill = [&](int upto, int j) {
+      upto = min(upto, steps);
+      if (wide) {
+        const int n = max(0, upto - filled) * 8;
+        for (int e = lane; e < n; e += 32) {
+          const int y = filled + (e >> 3), w = (e & 7) * 4;
+          copy16(&ring[y % U_RING][w], feed + (size_t)y * lanes + l0 + w);
+        }
+      } else if (live) {
+        for (int y = filled; y < upto; ++y)
+          copy4(&ring[y % U_RING][lane], feed + (size_t)y * lanes + l);
+      }
+      filled = max(filled, upto);
+      if (lane == 0) held[j % U_STAGES] = filled;
+    };
+    // Waits for the chain's walk of tile j and writes its indices out.
+    auto flush = [&](int j) {
+      const int s = j % U_STAGES;
+      bar_wait(&empty[s], (j / U_STAGES) & 1);
+      const int n = min(U_T, steps - j * U_T);
+      int32_t* out = idx_out + (size_t)j * U_T * lanes + l0;
+      if (wide) {
+#pragma unroll
+        for (int k = 0; k < U_T / 4; ++k) {
+          const int row = 4 * k + lane / 8, col = (lane % 8) * 4;
+          if (row < n)
+            *reinterpret_cast<int4*>(out + (size_t)row * lanes + col) =
+                *reinterpret_cast<const int4*>(&outs[s][row][col]);
+        }
+      } else if (live) {
+        for (int row = 0; row < n; ++row)
+          out[(size_t)row * lanes + lane] = outs[s][row][lane];
+      }
+    };
+    for (int j = 0; j < U_STAGES - 1; ++j) {
+      if (j < tiles) refill(j == 0 ? 2 * U_T : U_RING, j);
+      asm volatile("cp.async.commit_group;\n" ::: "memory");
+    }
+    for (int i = 0; i < tiles; ++i) {
+      // All but the newest U_STAGES - 2 groups have landed: tile i's has.
+      asm volatile("cp.async.wait_group %0;\n" ::"n"(U_STAGES - 2)
+                   : "memory");
+      __syncwarp();
+      if (lane == 0) bar_arrive(&full[i % U_STAGES]);
+      if (i > 0) flush(i - 1);
+      const int j = i + U_STAGES - 1;
+      if (j < tiles)
+        refill((i > 0 ? least[(i - 1) % U_STAGES] : 0) + U_RING, j);
+      asm volatile("cp.async.commit_group;\n" ::: "memory");
+    }
+    if (tiles > 0) flush(tiles - 1);
+    return;
+  }
+
+  // The chain. A thread past the last lane walks its neighbour's column
+  // and stores nothing.
   const uint32_t mask = (1u << precision) - 1u;
   const int shift = precision - lat_bits;
-  uint32_t h = (uint32_t)head[l];
+  const uint32_t freq = 1u << shift;
+  const int lc = live ? l : l0;
+  uint32_t h = (uint32_t)head[lc];
   int r = 0;
-  for (int t = 0; t < steps; ++t) {
-    size_t o = (size_t)t * lanes + l;
-    uint32_t slot = h & mask;
-    int idx = (int)(slot >> shift);
-    uint32_t start = (uint32_t)idx << shift, freq = 1u << shift;
-    idx_out[o] = idx;
-    h = freq * (h >> precision) + slot - start;
-    if (h < (1u << 16)) {
-      h = (h << 16) | (uint32_t)feed[(size_t)r * lanes + l];
-      ++r;
+  uint32_t fw = steps > 0 ? (uint32_t)feed[lc] : 0u;
+  for (int i = 0; i < tiles; ++i) {
+    const int s = i % U_STAGES;
+    bar_wait(&full[s], (i / U_STAGES) & 1);
+    const int ready = held[s];
+    const int n = min(U_T, steps - i * U_T);
+    // One step: the pop, then the read of word r (fw) when the head fell
+    // below 2^16; `next` is word r + 1.
+    const auto step = [&](int tt, uint32_t next) {
+      const uint32_t slot = h & mask;
+      const uint32_t idx = slot >> shift;
+      outs[s][tt][lane] = (int32_t)idx;
+      h = freq * (h >> precision) + slot - (idx << shift);
+      const bool need = h < (1u << 16);
+      h = need ? (h << 16) | fw : h;
+      r += need;
+      return need;
+    };
+    if (n == U_T &&
+        __all_sync(0xffffffffu, !live || r + U_T < ready)) {
+      // Every read of the tile is in the ring.
+#pragma unroll
+      for (int tt = 0; tt < U_T; ++tt) {
+        const uint32_t next = ring[(unsigned)(r + 1) % U_RING][lane];
+        fw = step(tt, next) ? next : fw;
+      }
+    } else {
+      for (int tt = 0; tt < n; ++tt) {
+        const uint32_t next = ring[(unsigned)(r + 1) % U_RING][lane];
+        if (step(tt, next))
+          fw = r < ready ? next
+                         : (r < steps ? (uint32_t)feed[(size_t)r * lanes + lc]
+                                      : fw);
+      }
     }
+    const int rmin = __reduce_min_sync(0xffffffffu, live ? r : INT32_MAX);
+    if (lane == 0) least[s] = rmin;
+    __syncwarp();
+    if (lane == 0) bar_arrive(&empty[s]);
   }
-  out_head[l] = (int64_t)h;
-  reads[l] = r;
+  if (live) {
+    out_head[l] = (int64_t)h;
+    reads[l] = r;
+  }
 }
 
 // The group for `lanes` lanes of `kind`: the widest (one evaluation on a
@@ -384,8 +544,8 @@ cudaError_t launch_pop_grid(const int64_t* head, const float* mu,
   if (lanes == 0) return cudaSuccess;
   if (kind < kUniform || kind > kLogistic) return cudaErrorInvalidValue;
   if (kind == kUniform) {
-    const int blocks = (lanes + THREADS - 1) / THREADS;
-    pop_grid_uniform_kernel<<<blocks, THREADS, 0, stream>>>(
+    const int blocks = (lanes + U_LANES - 1) / U_LANES;
+    pop_grid_uniform_kernel<<<blocks, U_THREADS, 0, stream>>>(
         head, feed, out_head, idx, reads, steps, lanes, lat_bits, precision);
     return cudaGetLastError();
   }

@@ -17,16 +17,22 @@ Pallas ``fori_loop``) in one thread, or in a group of threads:
                             staged in shared memory by helper warps);
   * ``pop_grid_emit``     - ``kernel.py:266 _pop_grid_kernel`` (kinds
                             ``gaussian`` and ``logistic``: a group of 16
-                            or 32 threads walks a lane's bisection tree; and
-                            ``uniform``);
+                            or 32 threads walks a lane's bisection tree;
+                            ``uniform``: one chain warp a block of 32
+                            lanes, its feed rows staged in a shared-memory
+                            ring by a helper warp, which writes the
+                            indices out);
   * ``grid_starts``       - the push side's Gaussian and logistic starts,
                             XLA code in the reference
                             (``codecs/compile.py:97-118``, ``:357``); a
                             kernel here so that encoder and decoder share
                             ``common/ndtr.cuh`` and ``common/xla_math.cuh``;
   * ``bucketize``         - ``repro/kernels/bucketize/kernel.py:37
-                            _bucketize_kernel`` (one bisection and no pop;
-                            its wrapper is ``kernels/bucketize/kernel.py``).
+                            _bucketize_kernel`` (one bisection and no pop,
+                            walked by a group of 32 threads a lane, with a
+                            second warp for its top round, or of 16 at
+                            many lanes; its wrapper is
+                            ``kernels/bucketize/kernel.py``).
 
 and ``flash_fwd`` - ``repro/kernels/flash/kernel.py:28 _flash_fwd_kernel``
 - in two routes that run one block per tile of 128 queries of one head

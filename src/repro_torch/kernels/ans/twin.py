@@ -208,23 +208,27 @@ def _answered(up: torch.Tensor, m: int) -> torch.Tensor:
     return a + up.gather(1, (a + 1)[:, None])[:, 0].to(torch.int64)
 
 
-#: the grid pop kernel's top-round levels by group width (``csrc/
-#: pop_grid.cu`` ``Shape``)
+#: the top-round levels by group width of the grid pop kernel (``csrc/
+#: pop_grid.cu`` ``Shape``) and the bucketize kernel (``../bucketize/
+#: csrc/bucketize.cu`` ``Walk``)
 GROUP_TOP_LEVELS = {32: 6, 16: 3}
 
 
 def grid_tree_walk(f: Callable[[torch.Tensor], torch.Tensor],
                    slot: torch.Tensor, bits: int, group: int
                    ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """The grid pop kernel's bisection (``csrc/pop_grid.cu``,
-    ``common/group_walk.cuh``) round for round: a top round of the tree's
-    top ``GROUP_TOP_LEVELS[group]`` levels (the kernel's helper warps
-    evaluate it ahead), then ``group`` = 16 or 32 threads a lane walk
-    ``discretize.bisect``'s tree, ``log2(group)`` levels a round on one
-    evaluation of F a thread. ``f`` maps int64 indices [L, n] to F there
-    (any integers: nothing assumes F monotone); slot [L] -> (idx, F(idx),
-    F(idx + 1)), idx as ``discretize.bisect(f, slot, bits)`` gives it.
-    Used by no path: the tests hold it to ``bisect``."""
+    """The grid pop and bucketize kernels' bisection (``csrc/pop_grid.cu``,
+    ``../bucketize/csrc/bucketize.cu``, ``common/group_walk.cuh``) round
+    for round: a top round of the tree's top ``GROUP_TOP_LEVELS[group]``
+    levels (the grid pop's helper warps evaluate it ahead; the bucketize's
+    group evaluates it, two points a thread at 32), then ``group`` = 16 or
+    32 threads a lane walk ``discretize.bisect``'s tree, ``log2(group)``
+    levels a round on one evaluation of F a thread. ``f`` maps int64
+    indices [L, n] to F there (any integers: nothing assumes F monotone);
+    slot [L] -> (idx, F(idx), F(idx + 1)), idx as ``discretize.bisect(f,
+    slot, bits)`` gives it. Used by no path: the tests hold it to
+    ``bisect`` and, over the posterior's F, to the reference's
+    bucketize."""
     k = 1 << bits
     g = group.bit_length() - 1
     slot = slot.to(torch.int64)[:, None]

@@ -1,8 +1,9 @@
 // The decode bisection of core/discretize.py `bisect` walked by a group of
-// G = 2^g threads of one warp (16 or 32 in the grid pop) instead of one
-// thread: the largest i in [0, 2^bits) with F(i) <= slot, by the same
-// bits + 1 halvings (mid = (lo + hi + 1) / 2) over the same tree, then
-// F(i) and F(i + 1). ../ans/twin.py grid_tree_walk is this walk in Python.
+// G = 2^g threads of one warp (16 or 32, in the grid pop and the
+// bucketize) instead of one thread: the largest i in [0, 2^bits) with
+// F(i) <= slot, by the same bits + 1 halvings (mid = (lo + hi + 1) / 2)
+// over the same tree, then F(i) and F(i + 1). ../ans/twin.py
+// grid_tree_walk is this walk in Python.
 //
 // Below a node whose interval has n = 2^m points, the tree's next L
 // levels probe a grid: lo + j n / 2^L for j = 1 .. 2^L - 1 (the sizes
@@ -13,8 +14,8 @@
 // probes (at level i, x's top i bits followed by a one) has the bit that
 // x's next bit says (up for 1, down for 0). Exactly one leaf meets
 // that for any bits, so the walk is the bisection's own, with nothing
-// assumed of F (bisect.cuh reads the same F(mid) <= slot one level at a
-// time); each thread tests one leaf and a second ballot names it.
+// assumed of F (the bisection reads the same F(mid) <= slot one level at
+// a time); each thread tests one leaf and a second ballot names it.
 //
 // The last round takes an interval of n <= G / 2 points and evaluates F
 // at all of lo .. lo + n + 1, which holds every point below it and the

@@ -80,15 +80,37 @@ __device__ __forceinline__ float ndtr(float a) {
 }
 
 // F(i) = floor(ndtr((z_i - mu) * (1/sigma)) * (2^p - K)) + i, with the
-// CDF pinned to 0 at i <= 0 and 1 at i >= K (core/discretize.py).
+// CDF pinned to 0 at i <= 0 and 1 at i >= K (core/discretize.py); edge
+// z_j is load(j), j clamped to [0, K]. With SKIP_ENDS the pinned ends
+// skip the ndtr (the same integers): at z_0 = -inf its IEEE reciprocals
+// take their slow paths, which a group of threads all wait for; the
+// branch costs the grid pop's wider group more than it saves.
+template <bool SKIP_ENDS = false, typename Load>
+__device__ __forceinline__ unsigned grid_start_from(const Load& load, int i,
+                                                    float mu,
+                                                    float inv_sigma, int k,
+                                                    float scale) {
+  float c;
+  if constexpr (SKIP_ENDS) {
+    if (i <= 0 || i >= k)
+      c = i <= 0 ? 0.0f : 1.0f;
+    else
+      c = ndtr(mul(sub(load(i), mu), inv_sigma));
+  } else {
+    float z = load(i < 0 ? 0 : (i > k ? k : i));
+    c = ndtr(mul(sub(z, mu), inv_sigma));
+    c = i <= 0 ? 0.0f : c;
+    c = i >= k ? 1.0f : c;
+  }
+  return (unsigned)floorf(mul(c, scale)) + (unsigned)i;
+}
+
+// The same F over the edges `edges` (K + 1 of them).
 __device__ __forceinline__ unsigned grid_start(
     const float* edges, int i, float mu, float inv_sigma, int k,
     float scale) {
-  float z = edges[i < 0 ? 0 : (i > k ? k : i)];
-  float c = ndtr(mul(sub(z, mu), inv_sigma));
-  c = i <= 0 ? 0.0f : c;
-  c = i >= k ? 1.0f : c;
-  return (unsigned)floorf(mul(c, scale)) + (unsigned)i;
+  return grid_start_from([edges](int j) { return edges[j]; }, i, mu,
+                         inv_sigma, k, scale);
 }
 
 }  // namespace xla_ndtr

@@ -20,6 +20,7 @@ from repro.kernels.bucketize import xla as xla_bk  # noqa: E402
 from repro_torch import codecs  # noqa: E402
 from repro_torch.core import discretize  # noqa: E402
 from repro_torch.kernels import dispatch  # noqa: E402
+from repro_torch.kernels.ans import twin as ans_twin  # noqa: E402
 from repro_torch.kernels.bucketize import ops, ref, twin  # noqa: E402
 from repro_torch.models import hvae  # noqa: E402
 
@@ -86,6 +87,26 @@ def test_plain_version_and_oracle_equal_the_reference(case, lanes, lat_bits,
     assert (t[0] < start.long() + freq.long()).all()
     assert (freq > 0).all() and (idx >= 0).all()
     assert (idx < (1 << lat_bits)).all()
+
+
+@pytest.mark.parametrize("lat_bits", [10, 12])
+@pytest.mark.parametrize("group", [16, 32])
+@pytest.mark.parametrize("case", ["random", "edges"])
+def test_group_walk_gives_the_reference_buckets(case, group, lat_bits):
+    """The CUDA kernel's algorithm on the CPU: ``twin.grid_tree_walk`` (the
+    walk ``csrc/bucketize.cu`` runs with a group of 16 or 32 threads a
+    lane, round for round) over ``discretize.posterior_starts_fn`` gives
+    the reference's (idx, start, freq), exactly."""
+    slot, mu, sigma = (_random(300, lat_bits, 16) if case == "random"
+                       else _edges(16))
+    want = _reference(slot, mu, sigma, lat_bits, 16)
+    f = discretize.posterior_starts_fn(
+        torch.from_numpy(mu)[:, None], torch.from_numpy(sigma)[:, None],
+        lat_bits, 16, discretize.edge_table(lat_bits, "cpu"))
+    idx, start, nxt = ans_twin.grid_tree_walk(f, torch.from_numpy(slot),
+                                              lat_bits, group)
+    for g, w in zip((idx, start, nxt - start), want):
+        np.testing.assert_array_equal(g.numpy(), w)
 
 
 def test_the_op_refuses_the_kernel_for_cpu_tensors():

@@ -446,6 +446,89 @@ def test_grid_pop_group_walk_matches_twin(kernel, kind, lanes, steps,
         assert torch.equal(a.cpu().to(torch.int64), b.to(torch.int64))
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("lat_bits,precision", [(0, 16), (10, 16), (16, 16),
+                                                (8, 12), (12, 12)])
+@pytest.mark.parametrize("lanes,steps", [
+    (1, 392), (3, 392), (32, 392), (33, 392), (1024, 392), (4101, 392),
+    (1, 40), (33, 40), (1024, 40), (4101, 40), (32, 1), (33, 17)])
+def test_uniform_pop_matches_twin(kernel, lanes, steps, lat_bits, precision):
+    """The uniform grid pop, bit for bit, at lane counts off its blocks of
+    32 and step counts off its tiles: at lat_bits 0 no lane reads, at
+    lat_bits 16 (precision 16) every lane reads at every step, down to
+    the feed's last row, and in between lanes read at their own steps."""
+    head, _, _, feed = _grid_edges(lanes, steps, 10, lanes + steps + lat_bits)
+    args = (None, None, feed, None, "uniform", lat_bits, precision)
+    want = twin.pop_grid_emit(head, *args)
+    if lat_bits == 0:
+        assert int(want[2].max()) == 0
+    if lat_bits == precision == 16:
+        assert int(want[2].min()) == steps
+    kernel.reset_launches()
+    got = kernel.pop_grid_emit(head.cuda(), None, None, feed.cuda(), None,
+                               *args[4:])
+    torch.cuda.synchronize()
+    assert kernel.LAUNCHES["pop_grid_emit/uniform"] == 1
+    for a, b in zip(got, want):
+        assert torch.equal(a.cpu().to(torch.int64), b.to(torch.int64))
+
+
+@pytest.mark.cuda
+def test_uniform_pop_reads_past_its_feed_ring(kernel):
+    """Lanes that read far apart: a head of 0 over a column of zero words
+    stays 0 and reads at every step, while the other lanes read about
+    every 1.6 steps, so the fast lanes run past the feed rows the kernel
+    keeps in shared memory (128) and read device memory."""
+    rng = np.random.default_rng(22)
+    lanes, steps = 70, 700
+    head = torch.from_numpy(rng.integers(1 << 16, 1 << 32, lanes,
+                                         dtype=np.int64))
+    feed = torch.from_numpy(rng.integers(0, 1 << 16, (steps, lanes))
+                            .astype(np.int32))
+    head[1::3] = 0
+    feed[:, 1::3] = 0
+    want = twin.pop_grid_emit(head, None, None, feed, None, "uniform", 10,
+                              16)
+    assert int(want[2][1::3].min()) - int(want[2][0::3].max()) > 128
+    got = kernel.pop_grid_emit(head.cuda(), None, None, feed.cuda(), None,
+                               "uniform", 10, 16)
+    for a, b in zip(got, want):
+        assert torch.equal(a.cpu().to(torch.int64), b.to(torch.int64))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lat_bits", [10, 12])
+@pytest.mark.parametrize("lanes", [1, 3, 32, 256, 1024, 1025, 4097])
+def test_bucketize_group_walk_matches_twin(kernel, lanes, lat_bits):
+    """The bucketize's group walk, bit for bit, at both group widths (32
+    threads a lane up to 1024 lanes, 16 above: ``csrc/bucketize.cu``
+    ``group_for``), lane counts off its blocks of 4 and 8 lanes, slots 0
+    and 2^16 - 1 among random ones, mu out to +-8 and sigma from 1e-3 to
+    30, each range's ends included."""
+    from repro_torch.kernels.bucketize import kernel as bk
+    from repro_torch.kernels.bucketize import twin as bk_twin
+
+    rng = np.random.default_rng(7 * lanes + lat_bits)
+    slot = rng.integers(0, 1 << 16, lanes)
+    slot[::3] = 0
+    slot[1::3] = (1 << 16) - 1
+    mu = rng.uniform(-8.0, 8.0, lanes)
+    mu[:2] = (-8.0, 8.0)[:lanes]
+    sigma = np.exp(rng.uniform(np.log(1e-3), np.log(30.0), lanes))
+    sigma[-2:] = (1e-3, 30.0)[-min(lanes, 2):]
+    c = [torch.from_numpy(slot.astype(np.int32)),
+         torch.from_numpy(mu.astype(np.float32)),
+         torch.from_numpy(sigma.astype(np.float32))]
+    e = discretize.edge_table(lat_bits, "cpu")
+    kernel.reset_launches()
+    got = bk.bucketize(*(t.cuda() for t in c), e.cuda(), lat_bits, 16)
+    torch.cuda.synchronize()
+    assert kernel.LAUNCHES["bucketize"] == 1
+    want = bk_twin.bucketize(*c, e, lat_bits, 16)
+    for a, b in zip(got, want):
+        assert torch.equal(a.cpu(), b)
+
+
 def _dyn_tables(rng, steps, lanes, a1, precision):
     """Non-decreasing per-step tables 0 .. 2^precision, some symbols of
     zero frequency."""

@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
-"""Time the grid and dyntable pop kernels of two checkouts of this repo on
-one GPU, in turns, and check that both write the same outputs.
+"""Time the grid pops, the dyntable pop and the posterior bucketize of two
+checkouts of this repo on one GPU, in turns, and check that both write
+the same outputs.
 
     python3 tools/compare_pops.py OTHER [--reps 20]
 
@@ -8,15 +9,20 @@ OTHER is the root of another checkout, e.g. a ``git archive`` of the
 parent commit unpacked into ``build/parent``. Each turn is a process of
 its own that imports ``repro_torch`` from one checkout's ``src``, builds
 that checkout's kernels into its ``build/kernels`` and calls its public
-wrappers (``kernels.ans.kernel.pop_grid_emit``, ``pop_dyntable_emit``),
-so the two checkouts' bindings may differ. The turns run OTHER, this,
-this, OTHER. The inputs are ``chip_smoke.py``'s phase 3 draws: the
-gaussian and logistic grid pops at 4096 lanes x 40 steps (lat_bits 10),
-the gaussian at 32 lanes x 392 steps (phase 13's first level), the
-dyntable pop at 4096 and 32 lanes x 784 steps (A+1 = 3). Times are
-CUDA-event means over ``--reps`` runs after a warm-up. Prints the card,
-a line a case, and a JSON object of the times last; exits non-zero when
-the outputs differ.
+wrappers (``kernels.ans.kernel.pop_grid_emit``, ``pop_dyntable_emit``,
+``kernels.bucketize.kernel.bucketize``), so the two checkouts' bindings
+may differ. The turns run OTHER, this, this, OTHER. The inputs are
+``chip_smoke.py``'s phase 3 draws: the gaussian and logistic grid pops at
+4096 lanes x 40 steps (lat_bits 10), the gaussian at 32 lanes x 392
+steps (phase 13's first level), the uniform pop at 32 x 392, 1024 x 40
+(phases 5-7 and 10) and 4096 x 40, the dyntable pop at 4096 and 32 lanes
+x 784 steps (A+1 = 3), the bucketize at 256 lanes (phase 12's) and 4096
+at lat_bits 10 and 4097 at lat_bits 12. Each case's time is the device
+time of one launch of its kernel (``torch.profiler``, summed over
+``--reps`` calls after a warm-up and divided by the launches), and
+beside it the time per call (host + device, CUDA events). Prints the
+card, a line a case, and a JSON object of the times last; exits non-zero
+when the outputs differ.
 """
 
 from __future__ import annotations
@@ -41,36 +47,48 @@ def worker(src: str, out: str, reps: int) -> None:
     import chip_smoke as S
     from repro_torch.core import discretize
     from repro_torch.kernels.ans import kernel as K
+    from repro_torch.kernels.bucketize import kernel as BK
 
     if not K.__file__.startswith(os.path.abspath(src)):
         raise SystemExit(f"compare_pops: imported {K.__file__}, not {src}")
     K.build()
     g = {k: v.cuda() for k, v in S.kernel_inputs().items()}
     e = discretize.edge_table(10, "cuda")
-    narrow = S.grid_inputs(S.POP_NARROW, S.GRID_NARROW_STEPS, 13,
-                           edges=False)
-    n = S.POP_NARROW
+    narrow = S.grid_inputs(32, 392, 13, edges=False)
+    n = 32
     dyn = (g["head"], g["tables"], g["feed_p"])
     dyn_n = (g["head"][:n].contiguous(), g["tables"][:, :n].contiguous(),
              g["feed_p"][:, :n].contiguous())
     grid = {
         f"gaussian {S.LANES}x40":
             (g["head"], g["mu"], g["sigma"], g["feed_s"], "gaussian"),
-        f"gaussian {n}x{S.GRID_NARROW_STEPS}": (*narrow, "gaussian"),
+        f"gaussian {n}x392": (*narrow, "gaussian"),
         f"logistic {S.LANES}x40":
             (g["head"], g["mu_l"], g["scale"], g["feed_s"], "logistic")}
+    for lanes, steps in ((32, 392), (1024, 40), (S.LANES, 40)):
+        u = S.kernel_inputs(lanes + steps, lanes, steps)
+        grid[f"uniform {lanes}x{steps}"] = (
+            u["head"].cuda(), None, None, u["feed_s"].cuda(), "uniform")
     cases = {f"pop_grid_emit/{name}":
-             (lambda a=a: K.pop_grid_emit(*a[:4], e, a[4], 10, 16))
+             (lambda a=a: K.pop_grid_emit(*a[:4], e, a[4], 10, 16),
+              S.KERNEL_FN[f"pop_grid_emit/{name.split()[0]}"])
              for name, a in grid.items()}
     cases.update({f"pop_dyntable_emit {label}":
-                  (lambda a=a: K.pop_dyntable_emit(*a, 16))
+                  (lambda a=a: K.pop_dyntable_emit(*a, 16),
+                   S.KERNEL_FN["pop_dyntable_emit"])
                   for label, a in ((f"{S.LANES}x784", dyn),
                                    (f"{n}x784", dyn_n))})
+    for lanes, lat_bits in ((256, 10), (S.LANES, 10), (S.LANES + 1, 12)):
+        b = (*S.bucketize_inputs(lanes),
+             discretize.edge_table(lat_bits, "cuda"), lat_bits, 16)
+        cases[f"bucketize {lanes}, lat_bits {lat_bits}"] = (
+            lambda b=b: BK.bucketize(*b), S.KERNEL_FN["bucketize"])
     times, arrays = {}, {}
-    for name, call in cases.items():
+    for name, (call, fn) in cases.items():
         for i, t in enumerate(call()):
             arrays[f"{name}/{i}"] = t.cpu().numpy()
-        times[name] = S.cuda_ms(call, reps)
+        times[name] = {"ms": S.device_ms(call, fn, reps),
+                       "call_ms": S.cuda_ms(call, reps)}
     np.savez(out + ".npz", **arrays)
     with open(out + ".json", "w") as f:
         json.dump(times, f)
@@ -112,18 +130,23 @@ def main() -> int:
     bad = 0
     summary = {}
     for name in res[0][1]:
-        t = [r[1][name] for r in res]
+        t = [r[1][name]["ms"] for r in res]
+        c = [r[1][name]["call_ms"] for r in res]
         diff = sum(int((r[2][k] != res[0][2][k]).sum())
                    for r in res[1:] for k in res[0][2]
                    if k.startswith(name + "/"))
         bad += diff
         other, this = (t[0] + t[3]) / 2, (t[1] + t[2]) / 2
         summary[name] = {"other_ms": [t[0], t[3]], "this_ms": [t[1], t[2]],
+                         "other_call_ms": [c[0], c[3]],
+                         "this_call_ms": [c[1], c[2]],
                          "this_over_other": this / other,
                          "mismatches": diff}
-        print(f"{name}: mismatches {diff}; other {t[0]:.4f}/{t[3]:.4f} ms, "
-              f"this {t[1]:.4f}/{t[2]:.4f} ms: this / other "
-              f"{this / other:.3f}", flush=True)
+        print(f"{name}: mismatches {diff}; device ms a launch: other "
+              f"{t[0]:.5f}/{t[3]:.5f}, this {t[1]:.5f}/{t[2]:.5f}, this / "
+              f"other {this / other:.3f}; per call (host + device): other "
+              f"{c[0]:.4f}/{c[3]:.4f}, this {c[1]:.4f}/{c[2]:.4f}",
+              flush=True)
     print(json.dumps({"card": smi, "cases": summary}))
     return 1 if bad else 0
 
