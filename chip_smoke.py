@@ -15,7 +15,8 @@ Phases, each on a line of its own; any failure exits non-zero:
      there: device time per launch (``torch.profiler``'s entries for the
      kernel's CUDA function), beside it the time per call (host + device,
      CUDA events), the plain version's time and the least time the card
-     could take (bytes over HBM rate or flops over the FP32 rate). The
+     could take (bytes over HBM rate or flops over the FP32 rate); peek
+     also beside one ``torch.bitwise_and``, the library column. The
      push also on inputs at the edges of its division by reciprocal (freq
      1 and 2^precision, heads near 2^32, precisions 16 and 12); the
      posterior bucketize at 256 lanes (phase 12's), 4096, 4097 at
@@ -81,10 +82,14 @@ Phases, each on a line of its own; any failure exits non-zero:
      with ``max_len`` 4096 + 16. First the flash-attention forward's two
      routes against their plain version: the tensor-core route on q, k, v
      captured from layer 0 of the 2 x 4096 prefill (bf16, causal) and
-     the float32 route on a ragged windowed GQA case (4100 tokens, window
-     1024): worst error, kernel, plain and
-     ``F.scaled_dot_product_attention`` times (the library column; the
-     port never calls it) and the bound. Then ``generate`` greedily
+     the float32 route on seeded inputs at a ragged windowed GQA case
+     (4100 tokens, window 1024), at the causal [28, 4096, 64] on 4 key
+     heads that a float32-compute prefill of 2 prompts would give it, and
+     at the reduced float32 prefill's [4, 2100, 16] on 2 (the path below
+     launches it there): worst error, kernel, plain and
+     ``F.scaled_dot_product_attention`` times (the library column, CUDA
+     events a call; the port never calls it) and the bound at the route's
+     rate (bf16 tensor cores; FP32 CUDA cores). Then ``generate`` greedily
      continues 2 uniform random prompts of 4096 tokens by 16, twice: the
      same tokens, and exactly 24 tensor-core flash launches (one a
      layer) per prefill. ``compress``/``decompress`` of 4 lanes x 128
@@ -97,7 +102,8 @@ Phases, each on a line of its own; any failure exits non-zero:
      stablelm-12b at full width (40 layers, d 5120, 32:8 heads of 160,
      bfloat16 weights from a CUDA generator): both flash routes at D 160
      against their plain version beside SDPA (layer 0 of its 2 x 4096
-     prefill; a ragged windowed float32 case), and ``generate`` twice:
+     prefill; a ragged windowed float32 case and the causal [64, 4096,
+     160] on 16 key heads), and ``generate`` twice:
      the same tokens, exactly 40 tensor-core flash launches a prefill.
 
 Each path (phases 5-14) runs with the kernel launch counts set to 0 just
@@ -250,6 +256,10 @@ LM_LANES, LM_TOKENS, LM_BLOCK = 4, 128, 32
 LM_TWIN_PROMPT, LM_TWIN_VOCAB = 2100, 300
 # The ragged flash check: GQA 14:2, a window, float32.
 FLASH_RAGGED = dict(s=4100, window=1024)
+# The float32 route at the shapes a float32-compute prefill of a served
+# model would give it: causal, no window, 2 prompts of this many tokens
+# (q [2 x heads, S, D] on 2 x key heads), numpy seed FLASH_F32_SEED.
+FLASH_F32_PROMPT, FLASH_F32_SEED = 4096, 3
 # Kernel against its plain version, as allclose with rtol = atol: float32
 # sums in another order (2e-5, the Pallas kernel test's tolerance);
 # bfloat16 outputs and p (2e-2).
@@ -538,12 +548,21 @@ def time_shape(name: str, lanes: int, steps: int, paths: str, e) -> dict:
              "ms": device_ms(call, KERNEL_FN[name]),
              "call_ms": cuda_ms(call, 20), "plain_ms": plain_ms,
              "mismatches": bad, "max_abs_err": worst}
+    if name == "pop_slots":
+        # One PyTorch call computes peek's values (in int64): the library
+        # column, its kernel's device time.
+        import torch
+        mask = (1 << 16) - 1
+        shape["library_ms"] = device_ms(
+            lambda: torch.bitwise_and(d["head"], mask), "elementwise_kernel")
     shape.update(bound(*work(name, d, got)))
+    library = f", library {shape['library_ms']:.4f} ms" \
+        if "library_ms" in shape else ""
     say(f"phase 3: {name} at {shape['shape']} (phases {paths}): "
         f"mismatches {bad}, device {shape['ms']:.4f} ms a launch, per call "
         f"(host + device) {shape['call_ms']:.4f} ms, plain "
         f"{plain_ms:.2f} ms, bound {shape['bound_ms']:.5f} ms "
-        f"({shape['bound_by']})")
+        f"({shape['bound_by']}){library}")
     return shape
 
 
@@ -739,7 +758,8 @@ def record(name: str, worst: int, shapes: list) -> dict:
                               [sh["max_abs_err"] for sh in shapes]),
            "ms": first["ms"], "call_ms": first["call_ms"],
            "plain_ms": first["plain_ms"], "bound_ms": first["bound_ms"],
-           "bound_by": first["bound_by"], "library_ms": None,
+           "bound_by": first["bound_by"],
+           "library_ms": first.get("library_ms"),
            "shape": first["shape"], "shapes": shapes}
     say(f"phase 3: {name} at {first['shape']}: device "
         f"{rec['ms']:.4f} ms a launch, bound {rec['bound_ms']:.5f} ms "
@@ -1410,10 +1430,11 @@ def lm_layer0_qkv(params, cfg, tokens):
 
 
 def flash_bound(bh: int, bkv: int, sq: int, sk: int, d: int, itemsize: int,
-                causal: bool, window: int) -> tuple:
+                causal: bool, window: int, flop_rate: float) -> tuple:
     """(bound ms, what bounds it): q, k, v read once and the output written
     once, against q . k and p . v over the (query, key) pairs the masks
-    leave, at the bf16 tensor-core rate."""
+    leave, at ``flop_rate`` (the route's: bf16 tensor cores for ``wgmma``,
+    FP32 CUDA cores for ``simt``)."""
     pairs = 0
     for qi in range(sq):
         hi = min(sk, qi + 1) if causal else sk
@@ -1422,25 +1443,28 @@ def flash_bound(bh: int, bkv: int, sq: int, sk: int, d: int, itemsize: int,
     flops = 2 * 2 * bh * pairs * d
     nbytes = itemsize * d * (2 * bh * sq + 2 * bkv * sk)
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / BF16_FLOPS * 1e3
+    t_ops = flops / flop_rate * 1e3
     return max(t_bytes, t_ops), ("operations" if t_ops > t_bytes
                                  else "bytes")
 
 
-def check_flash(q, k, v, *, causal: bool, window: int, label: str
-                ) -> dict:
+def check_flash(q, k, v, *, causal: bool, window: int, label: str,
+                paths: str = "14") -> dict:
     """The flash kernel of q's route against its plain version on (q, k,
-    v) [BH, S, D] on the card, beside SDPA; returns the route's
-    record."""
+    v) [BH, S, D] on the card (on the kernel's tiles), beside SDPA;
+    returns the route's record, its shape launched by ``paths``."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels.flash import kernel as FK
     from repro_torch.kernels.flash import twin as FT
 
     kw = dict(causal=causal, window=window)
-    got = FK.flash_fwd(q, k, v, **kw)
-    want, plain_ms = cuda_span(lambda: FT.flash_fwd(q, k, v, **kw))
     name = f"flash_fwd/{FK.route(q.dtype)}"
+    tiles = FT.simt_tiles(q.shape[-1], *q.shape[:2]) \
+        if name.endswith("simt") else None
+    got = FK.flash_fwd(q, k, v, **kw)
+    want, plain_ms = cuda_span(lambda: FT.flash_fwd(q, k, v, tiles=tiles,
+                                                    **kw))
     tol = FLASH_TOL[str(q.dtype).removeprefix("torch.")]
     diff = (got.float() - want.float()).abs()
     worst = float(diff.max())
@@ -1451,11 +1475,14 @@ def check_flash(q, k, v, *, causal: bool, window: int, label: str
     ms, call_ms = device_ms(call, KERNEL_FN[name], 10), cuda_ms(call, 10)
     bh, sq, d = q.shape
     bkv, sk = k.shape[:2]
-    bound_ms, bound_by = flash_bound(bh, bkv, sq, sk, d, q.element_size(),
-                                     causal, window)
+    bound_ms, bound_by = flash_bound(
+        bh, bkv, sq, sk, d, q.element_size(), causal, window,
+        BF16_FLOPS if name.endswith("wgmma") else FP32_FLOPS)
     # SDPA on [1, BH, S, D] with the key heads repeated and, for a window,
     # the mask built (both outside the timed call): the library column
-    # only, the device time of all its kernels a call.
+    # only, CUDA-event time a call. (Its traced device time is not kept:
+    # the tracer has dropped most of its launches' entries in this
+    # script, and at [4, 2100, 16] all of them.)
     g = bh // bkv
     q4, k4, v4 = (t[None] for t in (q, k.repeat_interleave(g, 0),
                                     v.repeat_interleave(g, 0)))
@@ -1464,20 +1491,21 @@ def check_flash(q, k, v, *, causal: bool, window: int, label: str
         i = torch.arange(sq, device=q.device)[:, None]
         j = torch.arange(sk, device=q.device)[None, :]
         mask = (j > i - window) & ((j <= i) if causal else True)
-    library_ms = device_ms(lambda: F.scaled_dot_product_attention(
-        q4, k4, v4, attn_mask=mask, is_causal=causal and mask is None),
-        None, 10)
+    library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
+        q4, k4, v4, attn_mask=mask, is_causal=causal and mask is None), 10)
     say(f"phase 14: {name} {label} ({bh} heads on {bkv} key heads, "
         f"{sq} x {sk}, D {d}, {q.dtype}, causal {causal}, window {window}): "
         f"max_abs_err {worst:.3g} at |out| up to "
         f"{float(want.float().abs().max()):.3g} (rtol = atol = {tol}: "
         f"{ratio:.3g} of it), device {ms:.4f} ms a launch, per call (host "
         f"+ device) {call_ms:.4f} ms, plain {plain_ms:.2f} ms, SDPA "
-        f"{library_ms:.4f} ms, bound {bound_ms:.5f} ms ({bound_by})")
+        f"{library_ms:.4f} ms a call, bound {bound_ms:.5f} ms "
+        f"({bound_by}); kernel / SDPA {ms / library_ms:.3f} (device), "
+        f"{call_ms / library_ms:.3f} (a call)")
     if not ratio <= 1.0:
         raise SystemExit("phase 14: the flash kernel disagrees with its "
                          "plain version")
-    shape = {"shape": flash_shape(q), "paths": "14", "ms": ms,
+    shape = {"shape": flash_shape(q), "paths": paths, "ms": ms,
              "call_ms": call_ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
              "bound_by": bound_by, "library_ms": library_ms,
              "max_abs_err": worst}
@@ -1487,6 +1515,30 @@ def check_flash(q, k, v, *, causal: bool, window: int, label: str
             "bound_ms": bound_ms, "bound_by": bound_by,
             "library_ms": library_ms, "shape": shape["shape"],
             "shapes": [shape]}
+
+
+def seeded_qkv(heads: int, kv_heads: int, s: int, d: int, rng):
+    """float32 q [heads, s, d] and k, v [kv_heads, s, d] from ``rng``'s
+    normal draws, on the card."""
+    import numpy as np
+    import torch
+    return tuple(torch.from_numpy(rng.normal(0, 1, (n, s, d))
+                                  .astype(np.float32)).cuda()
+                 for n in (heads, kv_heads, kv_heads))
+
+
+def check_flash_f32(rec: dict, cfg, label: str, *, batch: int, s: int,
+                    paths: str = "none") -> None:
+    """The float32 route at the shape a float32-compute prefill of
+    ``cfg`` gives it - ``batch`` prompts of ``s`` tokens, causal, no
+    window - on seeded inputs, its shape added to the route's record
+    ``rec``."""
+    import numpy as np
+    q, k, v = seeded_qkv(batch * cfg.n_heads, batch * cfg.n_kv_heads, s,
+                         cfg.head_dim,
+                         np.random.default_rng(FLASH_F32_SEED))
+    rec["shapes"] += check_flash(q, k, v, causal=True, window=0,
+                                 label=label, paths=paths)["shapes"]
 
 
 def lm_twin_check() -> dict:
@@ -1557,15 +1609,17 @@ def lm_serve_path(card: str):
     records = [check_flash(*lm_layer0_qkv(params, cfg, prompts["tokens"]),
                            causal=True, window=0, label="layer 0 of the "
                            "prefill")]
-    q, k, v = (torch.from_numpy(rng.normal(0, 1, (n, FLASH_RAGGED["s"],
-                                                  cfg.head_dim))
-                                .astype(np.float32)).cuda()
-               for n in (LM_BATCH * cfg.n_heads, LM_BATCH * cfg.n_kv_heads,
-                         LM_BATCH * cfg.n_kv_heads))
+    q, k, v = seeded_qkv(LM_BATCH * cfg.n_heads, LM_BATCH * cfg.n_kv_heads,
+                         FLASH_RAGGED["s"], cfg.head_dim, rng)
     records.append(check_flash(q, k, v, causal=True,
                                window=FLASH_RAGGED["window"],
                                label="ragged"))
     del q, k, v
+    check_flash_f32(records[-1], cfg, "causal, full width",
+                    batch=LM_BATCH, s=FLASH_F32_PROMPT)
+    reduced = base.reduced(cfg)
+    check_flash_f32(records[-1], reduced, "the reduced float32 prefill's "
+                    "shape", batch=1, s=LM_TWIN_PROMPT, paths="14")
 
     generate = lambda: eng.generate(prompts, LM_NEW)
     (first, gen_ms), launches = counted("phase 14", LM_KERNELS,
@@ -1659,10 +1713,8 @@ def stablelm_path(card: str, records: list) -> dict:
                        label=f"{SLM_ARCH} layer 0 of the prefill")
     say(f"phase 14: {SLM_ARCH} flash D {cfg.head_dim}: kernel / SDPA "
         f"{d160['ms'] / d160['library_ms']:.3f}")
-    q, k, v = (torch.from_numpy(rng.normal(0, 1, (n, FLASH_RAGGED["s"],
-                                                  cfg.head_dim))
-                                .astype(np.float32)).cuda()
-               for n in (cfg.n_heads, cfg.n_kv_heads, cfg.n_kv_heads))
+    q, k, v = seeded_qkv(cfg.n_heads, cfg.n_kv_heads, FLASH_RAGGED["s"],
+                         cfg.head_dim, rng)
     d160_f32 = check_flash(q, k, v, causal=True,
                            window=FLASH_RAGGED["window"],
                            label=f"ragged D {cfg.head_dim}")
@@ -1673,6 +1725,9 @@ def stablelm_path(card: str, records: list) -> dict:
                                       "plain_ms", "bound_ms", "bound_by",
                                       "library_ms")}
         by_name[rec["name"]]["shapes"] += rec["shapes"]
+    check_flash_f32(by_name["flash_fwd/simt"], cfg,
+                    f"{SLM_ARCH} causal, full width", batch=LM_BATCH,
+                    s=FLASH_F32_PROMPT)
 
     generate = lambda: eng.generate(prompts, LM_NEW)
     (first, gen_ms), launches = counted(f"phase 14 {SLM_ARCH}", LM_KERNELS,

@@ -51,7 +51,7 @@ cudaError_t launch_bucketize(const int32_t* slot, const float* mu,
 cudaError_t launch_flash_fwd_simt(const void* q, const void* k,
                                   const void* v, void* out, int bh,
                                   int group, int sq, int sk, int d,
-                                  int causal, int window,
+                                  int head_dim, int causal, int window,
                                   cudaStream_t stream);
 cudaError_t launch_flash_fwd_wgmma(const void* q, const void* k,
                                    const void* v, void* out, int bh,
@@ -315,20 +315,24 @@ std::vector<Tensor> posterior_bucketize(const Tensor& slot, const Tensor& mu,
   return {idx, start, freq};
 }
 
-// Why the flash route `wgmma` cannot take q, k, v of head dim d (already
-// checked: dtype, shapes, card), or "" when it can.
-static std::string wgmma_refusal(const Tensor& q, const Tensor& k,
-                                 const Tensor& v, int64_t d, int64_t sk,
-                                 int64_t head_dim) {
-  if (d % 16 != 0)
-    return "route wgmma needs D a multiple of 16, got " + std::to_string(d);
+// Why flash route `route` cannot take q, k, v of head dim d (already
+// checked: dtype, shapes, card), or "" when it can. Both routes load
+// 16-byte pieces of rows: `wgmma` by TMA, D a multiple of 16, at least one
+// key; `simt` by cp.async, D a multiple of 4. The wrapper zero-pads D.
+static std::string flash_refusal(const std::string& route, const Tensor& q,
+                                 const Tensor& k, const Tensor& v, int64_t d,
+                                 int64_t sk, int64_t head_dim) {
+  const int64_t multiple = route == "wgmma" ? 16 : 4;
+  if (d % multiple != 0)
+    return "route " + route + " needs D a multiple of " +
+           std::to_string(multiple) + ", got " + std::to_string(d);
   if (head_dim < 1 || head_dim > d)
-    return "route wgmma needs 1 <= head_dim <= D, got " +
+    return "route " + route + " needs 1 <= head_dim <= D, got " +
            std::to_string(head_dim);
-  if (sk < 1) return "route wgmma needs a key";
+  if (route == "wgmma" && sk < 1) return "route wgmma needs a key";
   for (const Tensor* t : {&q, &k, &v})
     if (reinterpret_cast<uintptr_t>(t->data_ptr()) % 16 != 0)
-      return "route wgmma needs 16-byte aligned tensors";
+      return "route " + route + " needs 16-byte aligned tensors";
   return "";
 }
 
@@ -337,10 +341,11 @@ static std::string wgmma_refusal(const Tensor& q, const Tensor& k,
 constexpr int64_t kFlashMaxD = 192;
 
 // q [BH, Sq, D]; k, v [BH / G, Sk, D]: contiguous, one card -> out
-// [BH, Sq, D]. route "wgmma": bfloat16, D a multiple of 16 in [16, 192]
-// (the wrapper zero-pads), 16-byte aligned, Sk >= 1, and head_dim <= D the
-// true head dim that sets the scale; route "simt": float32, D in [1, 192],
-// head_dim == D. Raises on inputs the named route does not take.
+// [BH, Sq, D]. route "wgmma": bfloat16, D a multiple of 16 in [16, 192],
+// Sk >= 1; route "simt": float32, D a multiple of 4 in [4, 192]. Both:
+// 16-byte aligned, and head_dim <= D the true head dim that sets the
+// scale (the wrapper zero-pads D). Raises on inputs the named route does
+// not take.
 Tensor flash_fwd(const Tensor& q, const Tensor& k, const Tensor& v,
                  bool causal, int64_t window, const std::string& route,
                  int64_t head_dim) {
@@ -367,9 +372,7 @@ Tensor flash_fwd(const Tensor& q, const Tensor& k, const Tensor& v,
   need(q, "q", dtype, {bh, sq, d}, dev);
   need(k, "k", dtype, {bkv, sk, d}, dev);
   need(v, "v", dtype, {bkv, sk, d}, dev);
-  const std::string refusal =
-      wgmma ? wgmma_refusal(q, k, v, d, sk, head_dim)
-            : (head_dim == d ? "" : "route simt needs head_dim == D");
+  const std::string refusal = flash_refusal(route, q, k, v, d, sk, head_dim);
   TORCH_CHECK_VALUE(refusal.empty(), "kernels.flash: ", refusal);
   const c10::cuda::CUDAGuard guard(dev);
   Tensor out = torch::empty_like(q);
@@ -380,8 +383,8 @@ Tensor flash_fwd(const Tensor& q, const Tensor& k, const Tensor& v,
                        causal, (int)window, stream)
                  : launch_flash_fwd_simt(q.data_ptr(), k.data_ptr(),
                                          v.data_ptr(), out.data_ptr(), bh,
-                                         bh / bkv, sq, sk, d, causal,
-                                         (int)window, stream),
+                                         bh / bkv, sq, sk, d, head_dim,
+                                         causal, (int)window, stream),
            "flash_fwd");
   return out;
 }

@@ -35,10 +35,11 @@ Pallas ``fori_loop``) in one thread, or in a group of threads:
                             ``kernels/bucketize/kernel.py``).
 
 and ``flash_fwd`` - ``repro/kernels/flash/kernel.py:28 _flash_fwd_kernel``
-- in two routes that run one block per tile of 128 queries of one head
+- in two routes that run one block per tile of queries of one head
 (their wrapper is ``kernels/flash/kernel.py``, which picks the route by
-dtype): ``wgmma`` for bfloat16 on the tensor cores (TMA and wgmma), and
-``simt`` for float32 on the CUDA cores.
+dtype): ``wgmma`` for bfloat16 on the tensor cores (TMA and wgmma, 128
+queries a block), and ``simt`` for float32 on the CUDA cores
+(register-tiled, 64 or 128 queries a block).
 
 Build: ``torch.utils.cpp_extension.load`` compiles the nine sources and
 ``csrc/bindings.cpp`` (typed ``torch::Tensor`` entry points that check

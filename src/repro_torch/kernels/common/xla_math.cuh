@@ -56,17 +56,27 @@ __device__ __forceinline__ float sigmoid_f32(float x) {
 
 // Logistic grid start F(i) = floor(clip(sigmoid((z_i - mu) * (1/s)), 0, 1)
 // * (2^p - K)) + i, the CDF pinned to 0 at i <= 0 and 1 at i >= K
-// (codecs/leaves.py logistic_starts_fn).
-__device__ __forceinline__ unsigned logistic_start(
-    const float* edges, int i, float mu, float inv_scale, int k,
+// (codecs/leaves.py logistic_starts_fn); edge z_j is load(j), j clamped to
+// [0, K].
+template <typename Load>
+__device__ __forceinline__ unsigned logistic_start_from(
+    const Load& load, int i, float mu, float inv_scale, int k,
     float scale) {
-  float z = edges[i < 0 ? 0 : (i > k ? k : i)];
+  float z = load(i < 0 ? 0 : (i > k ? k : i));
   float c = sigmoid_f32(mul(sub(z, mu), inv_scale));
   c = c < 0.0f ? 0.0f : c;        // jnp.clip; comparisons keep NaN
   c = c > 1.0f ? 1.0f : c;
   c = i <= 0 ? 0.0f : c;
   c = i >= k ? 1.0f : c;
   return (unsigned)floorf(mul(c, scale)) + (unsigned)i;
+}
+
+// The same F over the edges `edges` (K + 1 of them).
+__device__ __forceinline__ unsigned logistic_start(
+    const float* edges, int i, float mu, float inv_scale, int k,
+    float scale) {
+  return logistic_start_from([edges](int j) { return edges[j]; }, i, mu,
+                             inv_scale, k, scale);
 }
 
 }  // namespace xla_math

@@ -7,9 +7,10 @@ For each tile of ``BLOCK_Q`` queries it visits only the key tiles of
 updates the online softmax ``(m, l, acc)``, in float32, once a key tile,
 as the bfloat16 tensor-core kernel does (and the Pallas kernel at its
 default ``block_k``, ``BLOCK_K``, up to D 128): a bfloat16 ``p`` is
-rounded against the same running max on both. (The float32 kernel
-updates every 16 keys; float32 ``p`` is not rounded, so that changes
-only the float32 rounding.) Scores are ``q . k * D^-0.5`` summed in float32 (on the card,
+rounded against the same running max on both. The float32 kernel walks
+other tiles (``simt_tiles``), which ``tiles`` gives this version too;
+float32 ``p`` is not rounded, so the tiles change only the float32
+rounding. Scores are ``q . k * D^-0.5`` summed in float32 (on the card,
 bfloat16 scores are summed by the tensor cores, as the kernel sums them)
 and held in log2 units; a masked score is -1e30 (not -inf, as the Pallas
 kernel sets it), ``p`` is cast to v's dtype before ``p . v``, and the
@@ -43,6 +44,21 @@ def block_k(d: int) -> int:
     return BLOCK_K if d <= 128 else 64
 
 
+#: 128-query blocks from which the float32 kernel takes 8 query rows a
+#: thread (up to D 64): twice the H100's 132 multiprocessors
+SIMT_WIDE_GRID = 2 * 132
+
+
+def simt_tiles(d: int, bh: int, sq: int) -> Tuple[int, int]:
+    """(queries, keys) a tile of the float32 kernel (``csrc/flash_fwd.cu``)
+    on q [bh, sq, d]: 128 queries up to D 64 when ``bh`` x ceil(sq / 128)
+    blocks of them fill the card twice over (``SIMT_WIDE_GRID``), else 64;
+    64 keys up to D 160, 32 above (two stages of 64 would overflow its
+    shared memory)."""
+    wide = d <= 64 and bh * -(-sq // 128) >= SIMT_WIDE_GRID
+    return 128 if wide else 64, 64 if d <= 160 else 32
+
+
 def kv_tiles(q0: int, q1: int, sk: int, causal: bool, window: int,
              bk: int = BLOCK_K) -> Tuple[int, int]:
     """The key tiles ``[lo, hi)`` of ``bk`` keys that queries ``[q0,
@@ -69,23 +85,26 @@ def _scores(qb: torch.Tensor, kb: torch.Tensor) -> torch.Tensor:
 
 def flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
               causal: bool = True, window: int = 0,
-              head_dim: Optional[int] = None) -> torch.Tensor:
+              head_dim: Optional[int] = None,
+              tiles: Optional[Tuple[int, int]] = None) -> torch.Tensor:
     """q [BH, Sq, D]; k/v [BH // G, Sk, D] (float32 or bfloat16) -> out
     [BH, Sq, D] in q's dtype. ``window <= 0`` disables the window.
     ``head_dim`` (default D) sets the scale ``head_dim^-0.5``, as the
-    kernels take it for zero-padded heads. Scores are kept in log2 units
+    kernels take it for zero-padded heads. ``tiles`` (queries, keys a
+    tile; default ``(BLOCK_Q, block_k(D))``) sets where the online softmax
+    updates. Scores are kept in log2 units
     (times log2(e)) and exponentiated with exp2, as the bfloat16 kernel
     does, so that its p rounds as this one's."""
     bh, sq, d = q.shape
     bkv, sk, _ = k.shape
     g = bh // bkv
-    bk = block_k(d)
+    bq, bk = tiles or (BLOCK_Q, block_k(d))
     scale = (head_dim or d) ** -0.5 * LOG2E
     qg = q.reshape(bkv, g, sq, d)
     vf = v.float()
     out = torch.empty((bkv, g, sq, d), dtype=q.dtype, device=q.device)
-    for q0 in range(0, sq, BLOCK_Q):
-        q1 = min(q0 + BLOCK_Q, sq)
+    for q0 in range(0, sq, bq):
+        q1 = min(q0 + bq, sq)
         q_ids = torch.arange(q0, q1, device=q.device)[:, None]
         qb = qg[:, :, q0:q1]
         m = torch.full(qb.shape[:3], NEG_INF, device=q.device)

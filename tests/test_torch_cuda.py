@@ -316,6 +316,17 @@ def test_hvae_kernel_leaf_on_the_card(kernel):
     (6, 3, 300, 300, 40, True, 0, "bfloat16"),     # D padded to 48
     (2, 1, 96, 160, 24, False, 0, "bfloat16"),     # D padded to 32
     (6, 3, 700, 700, 64, True, 256, "bfloat16"),   # windowed
+    # The float32 route's instances (D rounded up to 32, padded to 4):
+    (7, 7, 65, 65, 1, True, 0, "float32"),       # one past a query tile
+    (8, 4, 1, 300, 8, False, 0, "float32"),      # Sq = 1
+    (14, 7, 129, 129, 60, True, 1, "float32"),   # window 1
+    (8, 4, 300, 200, 100, False, 0, "float32"),  # Sq != Sk
+    (14, 7, 129, 129, 128, True, 0, "float32"),
+    (8, 4, 65, 65, 160, True, 32, "float32"),
+    (14, 7, 1, 1, 192, True, 0, "float32"),
+    (8, 4, 300, 300, 192, False, 0, "float32"),
+    (280, 4, 129, 129, 64, True, 0, "float32"),  # 128-query blocks
+    (280, 4, 257, 257, 32, True, 100, "float32"),
 ])
 def test_flash_kernel_matches_twin(kernel, bh, g, sq, sk, d, causal,
                                    window, dtype):
@@ -339,7 +350,10 @@ def test_flash_kernel_matches_twin(kernel, bh, g, sq, sk, d, causal,
     assert kernel.LAUNCHES["flash_fwd"] == 1
     assert kernel.LAUNCHES[f"flash_fwd/{route}"] == 1
     assert sum(kernel.LAUNCHES[f"flash_fwd/{r}"] for r in fk.ROUTES) == 1
-    want = f_twin.flash_fwd(q, k, v, causal=causal, window=window)
+    tiles = f_twin.simt_tiles(-(-d // 4) * 4, bh, sq) \
+        if route == "simt" else None
+    want = f_twin.flash_fwd(q, k, v, causal=causal, window=window,
+                            tiles=tiles)
     assert got.dtype == dt and got.shape == q.shape
     tol = 2e-2 if dtype == "bfloat16" else 2e-5
     np.testing.assert_allclose(got.float().cpu().numpy(),
@@ -360,11 +374,41 @@ def test_flash_binding_refuses_what_a_route_does_not_take(kernel):
     b40 = torch.zeros((2, 64, 40), device="cuda", dtype=torch.bfloat16)
     with pytest.raises(ValueError, match="multiple of 16"):
         kernel.build().flash_fwd(b40, b40, b40, True, 0, "wgmma", 40)
+    f6 = torch.zeros((2, 64, 6), device="cuda")
+    with pytest.raises(ValueError, match="multiple of 4"):
+        kernel.build().flash_fwd(f6, f6, f6, True, 0, "simt", 6)
     for dtype, route in ((torch.bfloat16, "wgmma"), (torch.float32, "simt")):
         big = torch.zeros((2, 64, 193), device="cuda", dtype=dtype)
         with pytest.raises(ValueError,
                            match=r"head dim must be in \[1, 192\]"):
             kernel.build().flash_fwd(big, big, big, True, 0, route, 193)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["gaussian", "logistic"])
+@pytest.mark.parametrize("n", [1, 255, 256, 257, 132 * 1024, 132 * 1024 + 1,
+                               1024 * 784])
+def test_grid_starts_match_twin_at_the_ends(kernel, n, kind):
+    """The starts kernel (two threads an element up to 132 x 1024
+    elements, one above) against its plain version bit for bit, with
+    indices at 0, 1, K - 1 and K among random ones, mu over [-8, 8] and
+    sigma over [1e-3, 30]."""
+    rng = np.random.default_rng(n)
+    for lat_bits, precision in ((10, 16), (8, 12)):
+        k = 1 << lat_bits
+        idx = rng.integers(0, k + 1, n)
+        idx[:4] = (0, 1, k - 1, k)[:n]
+        mu = rng.uniform(-8.0, 8.0, n).astype(np.float32)
+        sigma = np.exp(rng.uniform(np.log(1e-3), np.log(30.0), n)) \
+            .astype(np.float32)
+        args = [torch.from_numpy(a).reshape(1, n)
+                for a in (idx.astype(np.int32), mu, sigma)]
+        e = discretize.edge_table(lat_bits, "cpu")
+        want = twin.grid_starts(*args, e, lat_bits, precision, kind)
+        got = kernel.grid_starts(*(a.cuda() for a in args), e.cuda(),
+                                 lat_bits, precision, kind)
+        for g, w in zip(got, want):
+            assert torch.equal(g.cpu(), w)
 
 
 def _adversarial_push(lanes, steps, precision, seed):

@@ -9,8 +9,9 @@ the Pallas kernel in interpret mode and to its oracle at
 The plain version is also held to the Pallas kernel at the kernels' own
 tiles (``twin.BLOCK_Q``, ``twin.BLOCK_K``: 128 keys a softmax update, so
 bfloat16 ``p`` is rounded against the same maxima) over several key
-tiles, and the wrapper's zero-padding of the head dim (the tensor-core
-route's) against the oracle. The model-layout wrapper and
+tiles, and at the float32 kernel's tiles (``twin.simt_tiles``) over head
+dims 8-192 and GQA groups 1, 4 and 7, and the wrapper's zero-padding of
+the head dim (both routes') against the oracle. The model-layout wrapper and
 ``sdpa_blockwise`` are held to the reference's in the GQA layout. The
 kernels themselves run only on the card (``tests/test_torch_cuda.py``,
 ``chip_smoke.py`` phase 14).
@@ -92,6 +93,45 @@ def test_twin_matches_the_pallas_kernel_at_the_kernels_tiles(
     np.testing.assert_allclose(_f32(got), _f32(want), rtol=tol, atol=tol)
 
 
+@pytest.mark.parametrize("sq,sk,causal,window", [
+    (150, 150, True, 0),       # ragged against the query and key tiles
+    (150, 150, True, 40),
+    (100, 170, False, 0),      # Sq != Sk
+])
+@pytest.mark.parametrize("g", [1, 4, 7])
+@pytest.mark.parametrize("d", [8, 64, 100, 160, 192])
+def test_twin_matches_the_pallas_kernel_at_the_simt_tiles(d, g, sq, sk,
+                                                           causal, window):
+    """The plain version on the float32 kernel's tiles (``simt_tiles``:
+    the query tile it takes on a small grid and, up to D 64, on a grid
+    that fills the card) against the Pallas kernel in interpret mode on
+    the same tiles, with the key heads repeated for it (it has no GQA),
+    at the Pallas kernel test's float32 tolerance."""
+    (qj, q), (kj, k), (vj, v) = (
+        _pair((n, s, d), "float32", d + g + s + i)
+        for i, (n, s) in enumerate(((g, sq), (1, sk), (1, sk))))
+    kr, vr = (jnp.repeat(t, g, axis=0) for t in (kj, vj))
+    for tiles in {twin.simt_tiles(d, g, sq),
+                  twin.simt_tiles(d, twin.SIMT_WIDE_GRID, sq)}:
+        want = ref_kernel.flash_fwd(qj, kr, vr, causal=causal,
+                                    window=window, block_q=tiles[0],
+                                    block_k=tiles[1], interpret=True)
+        got = twin.flash_fwd(q, k, v, causal=causal, window=window,
+                             tiles=tiles)
+        np.testing.assert_allclose(_f32(got), _f32(want), rtol=2e-5,
+                                   atol=2e-5)
+
+
+def test_simt_tiles_follow_the_head_dim_and_the_grid():
+    wide = twin.SIMT_WIDE_GRID
+    assert twin.simt_tiles(64, wide, 128) == (128, 64)
+    assert twin.simt_tiles(64, wide, 127) == (128, 64)
+    assert twin.simt_tiles(64, wide - 1, 128) == (64, 64)
+    assert twin.simt_tiles(68, wide, 4096) == (64, 64)
+    assert [twin.simt_tiles(d, 1, 1)[1] for d in (4, 128, 160, 164, 192)] \
+        == [64, 64, 64, 32, 32]
+
+
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("d", [8, 24, 40])
 def test_zero_padded_head_dim_matches_the_oracle(d, dtype):
@@ -108,6 +148,24 @@ def test_zero_padded_head_dim_matches_the_oracle(d, dtype):
     want = ref.flash_ref(q, k, v, causal=True, window=40)
     tol = _tol(dtype)
     np.testing.assert_allclose(_f32(got), _f32(want), rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("d", [1, 6, 99])
+def test_float32_route_pads_the_head_dim_to_four(d):
+    """The float32 kernel loads 16-byte pieces of rows: the wrapper pads D
+    to a multiple of 4 (``PAD["simt"]``) with zero columns, and the plain
+    version on the padded heads, at the true D's scale, keeps the
+    oracle's function."""
+    bh, s = 2, 130
+    q, k, v = (_pair((bh, s, d), "float32", 40 + d + i)[1]
+               for i in range(3))
+    qp, kp, vp = flash_kernel.pad_head_dim(q, k, v, flash_kernel.PAD["simt"])
+    assert qp.shape[-1] == -(-d // 4) * 4
+    assert torch.equal(qp[..., :d], q) and not qp[..., d:].any()
+    got = twin.flash_fwd(qp, kp, vp, causal=True, window=0, head_dim=d,
+                         tiles=twin.simt_tiles(qp.shape[-1], bh, s))[..., :d]
+    want = ref.flash_ref(q, k, v, causal=True, window=0)
+    np.testing.assert_allclose(_f32(got), _f32(want), rtol=2e-5, atol=2e-5)
 
 
 def test_the_dtype_picks_the_kernel_route():

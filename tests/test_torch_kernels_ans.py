@@ -128,17 +128,25 @@ def test_pop_grid_emit_matches_reference(lanes, precision, interpret, kind):
 @pytest.mark.parametrize("precision", PRECISIONS)
 @pytest.mark.parametrize("lanes", LANES)
 def test_grid_starts_match_reference_cdf(lanes, precision):
+    """The push-side starts of both CDF kinds at random indices and at
+    the pinned ends 0, 1, K - 1 and K (where F(K + 1) reads past the edge
+    table, clamped), exactly as the reference's grid chain."""
     d = _inputs(lanes, precision)
     lb = _lat_bits(precision)
-    f = jax.jit(lambda m, s, i: ref_xla._grid_starts_fn(
-        m, s, ref_bucketize.edge_table(lb), "gaussian", lb, precision)(i))
-    mu, sg, idx = (jnp.asarray(d[k]) for k in ("mu", "sigma", "idx"))
-    start = np.asarray(f(mu, sg, idx)).astype(np.int64)
-    freq = np.asarray(f(mu, sg, idx + 1)).astype(np.int64) - start
-    got = twin.grid_starts(_t(d["idx"]), _t(d["mu"]), _t(d["sigma"]),
-                           discretize.edge_table(lb, "cpu"), lb, precision)
-    np.testing.assert_array_equal(got[0].numpy(), start)
-    np.testing.assert_array_equal(got[1].numpy(), freq)
+    k = 1 << lb
+    idx_np = d["idx"].copy()
+    idx_np[:4] = np.array([0, 1, k - 1, k], np.int32)[:, None]
+    for kind in ("gaussian", "logistic"):
+        f = jax.jit(lambda m, s, i: ref_xla._grid_starts_fn(
+            m, s, ref_bucketize.edge_table(lb), kind, lb, precision)(i))
+        mu, sg, idx = (jnp.asarray(a) for a in (d["mu"], d["sigma"], idx_np))
+        start = np.asarray(f(mu, sg, idx)).astype(np.int64)
+        freq = np.asarray(f(mu, sg, idx + 1)).astype(np.int64) - start
+        got = twin.grid_starts(_t(idx_np), _t(d["mu"]), _t(d["sigma"]),
+                               discretize.edge_table(lb, "cpu"), lb,
+                               precision, kind)
+        np.testing.assert_array_equal(got[0].numpy(), start, err_msg=kind)
+        np.testing.assert_array_equal(got[1].numpy(), freq, err_msg=kind)
 
 
 def _stacks(lanes, seed=5, chunks=40):

@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
-"""Time the grid pops, the dyntable pop and the posterior bucketize of two
+"""Time the grid pops, the dyntable pop, the posterior bucketize, the
+push-side grid starts and the float32 flash-attention forward of two
 checkouts of this repo on one GPU, in turns, and check that both write
-the same outputs.
+the same outputs (the flash forward: within its 2e-5 tolerance).
 
     python3 tools/compare_pops.py OTHER [--reps 20]
 
@@ -10,19 +11,27 @@ parent commit unpacked into ``build/parent``. Each turn is a process of
 its own that imports ``repro_torch`` from one checkout's ``src``, builds
 that checkout's kernels into its ``build/kernels`` and calls its public
 wrappers (``kernels.ans.kernel.pop_grid_emit``, ``pop_dyntable_emit``,
-``kernels.bucketize.kernel.bucketize``), so the two checkouts' bindings
-may differ. The turns run OTHER, this, this, OTHER. The inputs are
-``chip_smoke.py``'s phase 3 draws: the gaussian and logistic grid pops at
-4096 lanes x 40 steps (lat_bits 10), the gaussian at 32 lanes x 392
-steps (phase 13's first level), the uniform pop at 32 x 392, 1024 x 40
-(phases 5-7 and 10) and 4096 x 40, the dyntable pop at 4096 and 32 lanes
-x 784 steps (A+1 = 3), the bucketize at 256 lanes (phase 12's) and 4096
-at lat_bits 10 and 4097 at lat_bits 12. Each case's time is the device
-time of one launch of its kernel (``torch.profiler``, summed over
-``--reps`` calls after a warm-up and divided by the launches), and
-beside it the time per call (host + device, CUDA events). Prints the
-card, a line a case, and a JSON object of the times last; exits non-zero
-when the outputs differ.
+``grid_starts``, ``kernels.bucketize.kernel.bucketize``,
+``kernels.flash.kernel.flash_fwd``), so the two checkouts' bindings may
+differ. The turns run OTHER, this, this, OTHER. The inputs are
+``chip_smoke.py``'s phase 3 and phase 14 draws: the gaussian and
+logistic grid pops at 4096 lanes x 40 steps (lat_bits 10), the gaussian
+at 32 lanes x 392 steps (phase 13's first level), the uniform pop at
+32 x 392, 1024 x 40 (phases 5-7 and 10) and 4096 x 40, the dyntable pop
+at 4096 and 32 lanes x 784 steps (A+1 = 3), the bucketize at 256 lanes
+(phase 12's) and 4096 at lat_bits 10 and 4097 at lat_bits 12, the
+gaussian starts at every path shape (256 x 1, 32 x 392, 1024 x 40,
+512 x 40, 1024 x 784) and the logistic at 4096 x 40, and the float32
+flash forward at phase 14's ragged windowed cases (28 heads on 4 at D
+64, 32 on 8 at D 160; 4100 tokens, window 1024) and causal full-width
+cases ([28, 4096, 64] on 4 key heads, [64, 4096, 160] on 16). Each
+case's time is the device time of one launch of its kernel
+(``torch.profiler``, summed over ``--reps`` calls - 5 for the flash
+forward - after a warm-up and divided by the launches), and beside it
+the time per call (host + device, CUDA events). Prints the card, a line
+a case, and a JSON object of the times last; exits non-zero when the
+outputs differ (the flash forward: when a turn's output is not within
+rtol = atol = 2e-5 of the first turn's).
 """
 
 from __future__ import annotations
@@ -35,6 +44,21 @@ import sys
 import tempfile
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+# The float32 flash forward's cases: (heads, key heads, tokens, D, window).
+FLASH_CASES = {"ragged D 64": (28, 4, 4100, 64, 1024),
+               "ragged D 160": (32, 8, 4100, 160, 1024),
+               "causal 28x4096x64": (28, 4, 4096, 64, 0),
+               "causal 64x4096x160": (64, 16, 4096, 160, 0)}
+FLASH_REPS, FLASH_TOL = 5, 2e-5
+
+
+def differ(name: str, a, b) -> int:
+    """Entries of ``a`` that differ from ``b``: any difference, or for
+    the flash forward one beyond rtol = atol = FLASH_TOL."""
+    import numpy as np
+    if name.startswith("flash_fwd"):
+        return int((np.abs(a - b) > FLASH_TOL * (1 + np.abs(b))).sum())
+    return int((a != b).sum())
 
 
 def worker(src: str, out: str, reps: int) -> None:
@@ -48,6 +72,7 @@ def worker(src: str, out: str, reps: int) -> None:
     from repro_torch.core import discretize
     from repro_torch.kernels.ans import kernel as K
     from repro_torch.kernels.bucketize import kernel as BK
+    from repro_torch.kernels.flash import kernel as FK
 
     if not K.__file__.startswith(os.path.abspath(src)):
         raise SystemExit(f"compare_pops: imported {K.__file__}, not {src}")
@@ -83,12 +108,31 @@ def worker(src: str, out: str, reps: int) -> None:
              discretize.edge_table(lat_bits, "cuda"), lat_bits, 16)
         cases[f"bucketize {lanes}, lat_bits {lat_bits}"] = (
             lambda b=b: BK.bucketize(*b), S.KERNEL_FN["bucketize"])
+    for kind, shapes in (("gaussian", ((256, 1), (32, 392), (1024, 40),
+                                       (512, 40), (1024, 784))),
+                         ("logistic", ((S.LANES, 40),))):
+        for lanes, steps in shapes:
+            u = {k: v.cuda() for k, v in
+                 S.kernel_inputs(lanes + steps, lanes, steps).items()}
+            mu, sigma = (u["mu"], u["sigma"]) if kind == "gaussian" \
+                else (u["mu_l"], u["scale"])
+            cases[f"grid_starts/{kind} {lanes}x{steps}"] = (
+                lambda a=(u["idx"], mu, sigma, e, 10, 16, kind):
+                K.grid_starts(*a), S.KERNEL_FN[f"grid_starts/{kind}"])
+    for label, (heads, kv, s, d, window) in FLASH_CASES.items():
+        qkv = S.seeded_qkv(heads, kv, s, d,
+                           np.random.default_rng(S.FLASH_F32_SEED))
+        cases[f"flash_fwd/simt {label}"] = (
+            lambda a=qkv, w=window: (FK.flash_fwd(*a, causal=True,
+                                                  window=w),),
+            S.KERNEL_FN["flash_fwd/simt"])
     times, arrays = {}, {}
     for name, (call, fn) in cases.items():
         for i, t in enumerate(call()):
             arrays[f"{name}/{i}"] = t.cpu().numpy()
-        times[name] = {"ms": S.device_ms(call, fn, reps),
-                       "call_ms": S.cuda_ms(call, reps)}
+        n = FLASH_REPS if name.startswith("flash_fwd") else reps
+        times[name] = {"ms": S.device_ms(call, fn, n),
+                       "call_ms": S.cuda_ms(call, n)}
     np.savez(out + ".npz", **arrays)
     with open(out + ".json", "w") as f:
         json.dump(times, f)
@@ -132,7 +176,7 @@ def main() -> int:
     for name in res[0][1]:
         t = [r[1][name]["ms"] for r in res]
         c = [r[1][name]["call_ms"] for r in res]
-        diff = sum(int((r[2][k] != res[0][2][k]).sum())
+        diff = sum(differ(name, r[2][k], res[0][2][k])
                    for r in res[1:] for k in res[0][2]
                    if k.startswith(name + "/"))
         bad += diff
