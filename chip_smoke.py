@@ -13,9 +13,11 @@ Phases, each on a line of its own; any failure exits non-zero:
      same seeded inputs on the card) at 4096 lanes and at each shape where
      the counted paths launch it (``PATH_SHAPES``, ``BK_CASES``), timed
      there: device time per launch (``torch.profiler``'s entries for the
-     kernel's CUDA function), beside it the time per call (host + device,
-     CUDA events), the plain version's time and the least time the card
-     could take (bytes over HBM rate or flops over the FP32 rate); peek
+     kernel's CUDA function; ``ms_by`` "trace", or "events" - a time a
+     call, not ranked - where five traces lose its launches), beside it
+     the time per call (host + device, CUDA events), the plain version's
+     time and the least time the card could take (bytes over HBM rate or
+     flops over the FP32 rate); peek
      also beside one ``torch.bitwise_and``, the library column. The
      push also on inputs at the edges of its division by reciprocal (freq
      1 and 2^precision, heads near 2^32, precisions 16 and 12); the
@@ -27,7 +29,12 @@ Phases, each on a line of its own; any failure exits non-zero:
      widths), and timed on either side of the lane count where the
      launcher narrows the group; the uniform pop at those lane counts x
      392 steps with no read, a read every step (to the feed's last row)
-     and between; the dyntable pop at A+1 = 2, 3, 13 and 257;
+     and between; the dyntable pop at A+1 = 2, 3, 13 and 257; the table
+     pop at each width band of its launcher (``TABLE_CASES``: A+1 = 3,
+     13, 257 and 4097 at 1, 3, 130, 4096 and 4101 lanes, 257 at 2640 and
+     2641, where the group narrows, 31, 4500 and 2^16 at 130) over 70
+     steps, with all-zero rows and heads near 2^32, each case
+     timed;
   4. the committed golden blobs ``tests/golden/bbx1_vae_fixedpoint.bin``,
      ``bbx2_stream.bin`` and ``bbx3_corpus.bin`` re-encoded on the card
      hex for hex and decoded losslessly;
@@ -85,8 +92,9 @@ Phases, each on a line of its own; any failure exits non-zero:
      the float32 route on seeded inputs at a ragged windowed GQA case
      (4100 tokens, window 1024), at the causal [28, 4096, 64] on 4 key
      heads that a float32-compute prefill of 2 prompts would give it, and
-     at the reduced float32 prefill's [4, 2100, 16] on 2 (the path below
-     launches it there): worst error, kernel, plain and
+     at the reduced prefill's [4, 2100, 16] on 2 (the path below launches
+     both routes there; the tensor-core route on seeded bf16 inputs):
+     worst error, kernel, plain and
      ``F.scaled_dot_product_attention`` times (the library column, CUDA
      events a call; the port never calls it) and the bound at the route's
      rate (bf16 tensor cores; FP32 CUDA cores). Then ``generate`` greedily
@@ -193,7 +201,8 @@ PATH_SHAPES = {
     "grid_starts/logistic": (((LOG_LANES, LOG_DIMS), "9"),),
 }
 # The CUDA function each record's wrapper launches, as the profiler names
-# it (a part of the name that other checkouts' kernels share).
+# it (a part of the name that other checkouts' kernels share; the table
+# pop's names every instance of its template, one a group width and walk).
 KERNEL_FN = {
     "push_emit": "push_kernel", "pop_slots": "peek_kernel",
     "pop_table_emit": "pop_table_kernel", "pop_dyntable_emit": "pop_dyntable",
@@ -230,6 +239,18 @@ POP_LANES = (1, 3, 32, 130, LANES, LANES + 5)
 GROUP_EDGES = {"gaussian": (1024, 1025), "logistic": (512, 513)}
 UNIFORM_EDGES = ((0, 16), (10, 16), (16, 16), (8, 12), (12, 12))
 DYN_A1, DYN_STEPS = (2, 3, 13, 257), 70
+# The table pop (A+1, lanes), over DYN_STEPS steps (off its 32-step
+# tiles), bit for bit and timed: each width band of its launcher (the
+# window alone at 3 and 13, groups of 8 and 16; top round and window at
+# 257, or above 2640 lanes a group of 8 with a probe round; a probe round
+# at 4097) at these lane counts, 257 on either side of 2640 lanes (the
+# launcher's NARROW_LANES), the window alone in a group of 32 (A+1 = 31)
+# and rows staged as samples (4500: top round and window over the
+# sample; 2^16: a probe round too) at 130 lanes.
+TABLE_A1, TABLE_LANES = (3, 13, 257, 4097), (1, 3, 130, LANES, LANES + 5)
+TABLE_CASES = tuple((a1, lanes) for a1 in TABLE_A1
+                    for lanes in TABLE_LANES) + (
+    (257, 2640), (257, 2641), (31, 130), (4500, 130), (1 << 16, 130))
 # The eager fixed-point codec and the CPU twin run every latent position
 # one after another (784 per level), so they are held to the card's
 # bytes at a few lanes over the first image.
@@ -356,22 +377,30 @@ def cuda_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-def device_ms(fn, kernel, reps: int = 20) -> float:
-    """Mean device time in ms of one launch of the CUDA function whose
-    name holds ``kernel`` (``KERNEL_FN``), over ``reps`` calls of
-    ``fn()`` traced by ``torch.profiler`` after one warm-up call: the
-    kernel's own entries only, summed and divided by their count. Fails
-    unless the trace holds at least half as many launches as calls and
-    no more; a trace that does not is taken again, up to three times (the
-    tracer has been seen to miss one launch, and once all of them). With
-    ``kernel`` None: every kernel's and copy's device time, per call."""
+#: traces ``device_ms`` takes before it gives up on the tracer
+TRACES = 5
+
+
+def device_ms(fn, kernel, reps: int = 20) -> tuple:
+    """(ms, by): the mean device time in ms of one launch of the CUDA
+    function whose name holds ``kernel`` (``KERNEL_FN``), over ``reps``
+    calls of ``fn()`` traced by ``torch.profiler`` after one warm-up
+    call - the kernel's own entries only, summed and divided by their
+    count - and ``by`` "trace". A trace that does not hold at least half
+    as many launches as calls, and no more, is taken again, up to
+    ``TRACES`` times (the tracer has been seen to miss one launch, and in
+    one run every launch of a kernel in three traces in a row). After
+    that the time is CUDA events' time a call, host work included, ``by``
+    is "events", and a line says so: such a time is kept, but neither
+    ranked here (``rank``) nor compared by ``tools/compare_pops.py``.
+    """
     import torch
     from torch.profiler import ProfilerActivity
 
     fn()
     torch.cuda.synchronize()
     acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
-    for _ in range(3):
+    for _ in range(TRACES):
         with torch.profiler.profile(activities=acts) as prof:
             for _ in range(reps):
                 fn()
@@ -379,18 +408,17 @@ def device_ms(fn, kernel, reps: int = 20) -> float:
         total, n = 0.0, 0
         for e in prof.key_averages():
             if e.device_type == torch.autograd.DeviceType.CUDA \
-                    and (kernel is None or kernel in e.key):
+                    and kernel in e.key:
                 total += getattr(e, "self_device_time_total",
                                  getattr(e, "self_cuda_time_total", 0))
                 n += e.count
-        if kernel is None and n:
-            return total / reps / 1e3
-        if kernel is not None and reps // 2 <= n <= reps and n:
-            break
-    else:
-        raise SystemExit(f"device_ms: {n} launches of {kernel} in {reps} "
-                         "calls, three traces running")
-    return total / n / 1e3
+        if reps // 2 <= n <= reps and n:
+            return total / n / 1e3, "trace"
+    ms = cuda_ms(fn, reps)
+    say(f"device_ms: {n} launches of {kernel} in {reps} calls, {TRACES} "
+        f"traces running; CUDA events' time a call instead (ms_by "
+        f"events, not ranked or compared): {ms:.4f} ms")
+    return ms, "events"
 
 
 def cuda_span(fn) -> tuple:
@@ -511,7 +539,7 @@ def work(name: str, d, out) -> tuple:
     if name == "pop_slots":
         return 12 * L, 0
     if name == "pop_table_emit":
-        return 4 * (CAT_A + 1) * L + 4 * TS * L + reads + 20 * L, 0
+        return 4 * d["table"].shape[1] * L + 4 * TS * L + reads + 20 * L, 0
     if name == "pop_dyntable_emit":
         return 12 * P * L + 4 * P * L + reads + 20 * L, 0
     if name.startswith("pop_grid_emit/") and not name.endswith("uniform"):
@@ -544,8 +572,9 @@ def time_shape(name: str, lanes: int, steps: int, paths: str, e) -> dict:
     want, plain_ms = cuda_span(lambda: run(T, name, d, e))
     worst, bad = max_err(got, want)
     call = lambda: run(K, name, d, e)
+    ms, ms_by = device_ms(call, KERNEL_FN[name])
     shape = {"shape": shape_key(name, lanes, steps), "paths": paths,
-             "ms": device_ms(call, KERNEL_FN[name]),
+             "ms": ms, "ms_by": ms_by,
              "call_ms": cuda_ms(call, 20), "plain_ms": plain_ms,
              "mismatches": bad, "max_abs_err": worst}
     if name == "pop_slots":
@@ -553,7 +582,7 @@ def time_shape(name: str, lanes: int, steps: int, paths: str, e) -> dict:
         # column, its kernel's device time.
         import torch
         mask = (1 << 16) - 1
-        shape["library_ms"] = device_ms(
+        shape["library_ms"], shape["library_ms_by"] = device_ms(
             lambda: torch.bitwise_and(d["head"], mask), "elementwise_kernel")
     shape.update(bound(*work(name, d, got)))
     library = f", library {shape['library_ms']:.4f} ms" \
@@ -597,8 +626,10 @@ def check_kernels():
                   for (lanes, steps), paths in PATH_SHAPES[name]]
         records.append(record(name, worst, shapes))
         bad_all += bad + sum(sh["mismatches"] for sh in shapes)
+    by_name = {r["name"]: r for r in records}
     bad_all += check_push()
-    bad_all += check_pops({r["name"]: r for r in records}, e_gpu)
+    bad_all += check_pops(by_name, e_gpu)
+    bad_all += check_tables(by_name["pop_table_emit"])
     rec, bad = check_bucketize()
     records.append(rec)
     if bad_all or bad:
@@ -719,11 +750,10 @@ def check_pops(recs: dict, e) -> int:
             bad = max_err(call(), T.pop_grid_emit(*args, e, kind, 10,
                                                   16))[1]
             bad_all += bad
-            rec["ms_by_lanes"][lanes] = device_ms(call,
-                                                  KERNEL_FN[rec["name"]])
+            ms, ms_by = device_ms(call, KERNEL_FN[rec["name"]])
+            rec["ms_by_lanes"][lanes] = {"ms": ms, "ms_by": ms_by}
             say(f"phase 3: pop_grid_emit/{kind} at {lanes} lanes x 40 "
-                f"steps: mismatches {bad}, device "
-                f"{rec['ms_by_lanes'][lanes]:.4f} ms a launch")
+                f"steps: mismatches {bad}, device {ms:.4f} ms a launch")
     for lanes in POP_LANES:
         for lat_bits, precision in UNIFORM_EDGES:
             head, _, _, feed = grid_inputs(lanes, 392, lanes + lat_bits,
@@ -748,6 +778,55 @@ def check_pops(recs: dict, e) -> int:
     return bad_all
 
 
+def table_pop_inputs(lanes: int, steps: int, a1: int, seed: int):
+    """Table-pop inputs (head, table, feed) on the card: heads near 2^32
+    and heads whose first slot is 0 or 2^16 - 1 among random ones;
+    non-decreasing rows 0 .. 2^16 with symbols of zero frequency, every
+    seventh row from the fourth all zeros (a padded lane)."""
+    import numpy as np
+    import torch
+    rng = np.random.default_rng(seed)
+    head = rng.integers(1 << 16, 1 << 32, lanes, dtype=np.int64)
+    head[::4] = (1 << 32) - 1 - rng.integers(0, 1 << 12, len(head[::4]))
+    head[1::4] &= ~0xFFFF
+    head[2::4] |= 0xFFFF
+    w = rng.integers(1, 100, (lanes, a1 - 1), dtype=np.int32) * \
+        (rng.random((lanes, a1 - 1), dtype=np.float32) > 0.2)
+    w[:, 0] += 1
+    cdf = np.floor(np.cumsum(w, 1, dtype=np.int64) * float(1 << 16)
+                   / w.sum(1, keepdims=True, dtype=np.int64))
+    table = np.concatenate([np.zeros((lanes, 1)), cdf], 1).astype(np.int32)
+    table[:, -1] = 1 << 16
+    table[3::7] = 0
+    feed = rng.integers(0, 1 << 16, (steps, lanes))
+    i32 = lambda a: torch.from_numpy(np.ascontiguousarray(a, np.int32))
+    return (torch.from_numpy(head).cuda(), i32(table).cuda(),
+            i32(feed).cuda())
+
+
+def check_tables(rec: dict) -> int:
+    """Phase 3's table pop beyond its path's shape: each of
+    ``TABLE_CASES`` bit for bit against the plain version (on the card)
+    and its device time a launch, kept as ``ms_by_width`` ("A+1 x
+    lanes"). Returns the mismatch count."""
+    from repro_torch.kernels.ans import kernel as K
+    from repro_torch.kernels.ans import twin as T
+
+    bad_all = 0
+    rec["ms_by_width"] = {}
+    for a1, lanes in TABLE_CASES:
+        args = (*table_pop_inputs(lanes, DYN_STEPS, a1, lanes + a1), 16)
+        call = lambda: K.pop_table_emit(*args)
+        worst, bad = max_err(call(), T.pop_table_emit(*args))
+        ms, ms_by = device_ms(call, KERNEL_FN["pop_table_emit"], 10)
+        rec["ms_by_width"][f"{a1} x {lanes}"] = {"ms": ms, "ms_by": ms_by}
+        say(f"phase 3: pop_table_emit A+1 = {a1} ({lanes} lanes x "
+            f"{DYN_STEPS} steps): mismatches {bad}, max_abs_err {worst}, "
+            f"device {ms:.4f} ms a launch")
+        bad_all += bad
+    return bad_all
+
+
 def record(name: str, worst: int, shapes: list) -> dict:
     """Phase 3's record of kernel ``name``: its first shape's numbers (the
     paths' most launched), all shapes under ``shapes``."""
@@ -756,7 +835,8 @@ def record(name: str, worst: int, shapes: list) -> dict:
            "replaces": REPLACES[name], "launches": 0,
            "max_abs_err": max([worst] +
                               [sh["max_abs_err"] for sh in shapes]),
-           "ms": first["ms"], "call_ms": first["call_ms"],
+           "ms": first["ms"], "ms_by": first["ms_by"],
+           "call_ms": first["call_ms"],
            "plain_ms": first["plain_ms"], "bound_ms": first["bound_ms"],
            "bound_by": first["bound_by"],
            "library_ms": first.get("library_ms"),
@@ -801,8 +881,9 @@ def check_bucketize() -> tuple:
                                          16)
         want, plain_ms = cuda_span(lambda: call(BT))
         worst, bad = max_err(call(BK), want)
+        ms, ms_by = device_ms(lambda: call(BK), KERNEL_FN["bucketize"])
         shape = {"shape": f"{lanes}, lat_bits {lat_bits}", "paths": paths,
-                 "ms": device_ms(lambda: call(BK), KERNEL_FN["bucketize"]),
+                 "ms": ms, "ms_by": ms_by,
                  "call_ms": cuda_ms(lambda: call(BK), 20),
                  "plain_ms": plain_ms, "mismatches": bad,
                  "max_abs_err": worst}
@@ -1472,7 +1553,8 @@ def check_flash(q, k, v, *, causal: bool, window: int, label: str,
     # one bfloat16 ulp is 0.25
     ratio = float((diff / (tol + tol * want.float().abs())).max())
     call = lambda: FK.flash_fwd(q, k, v, **kw)
-    ms, call_ms = device_ms(call, KERNEL_FN[name], 10), cuda_ms(call, 10)
+    (ms, ms_by), call_ms = device_ms(call, KERNEL_FN[name], 10), \
+        cuda_ms(call, 10)
     bh, sq, d = q.shape
     bkv, sk = k.shape[:2]
     bound_ms, bound_by = flash_bound(
@@ -1506,13 +1588,13 @@ def check_flash(q, k, v, *, causal: bool, window: int, label: str,
         raise SystemExit("phase 14: the flash kernel disagrees with its "
                          "plain version")
     shape = {"shape": flash_shape(q), "paths": paths, "ms": ms,
-             "call_ms": call_ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-             "bound_by": bound_by, "library_ms": library_ms,
-             "max_abs_err": worst}
+             "ms_by": ms_by, "call_ms": call_ms, "plain_ms": plain_ms,
+             "bound_ms": bound_ms, "bound_by": bound_by,
+             "library_ms": library_ms, "max_abs_err": worst}
     return {"name": name, "route": "cuda", "source": SOURCES[name],
             "replaces": REPLACES[name], "launches": 0, "max_abs_err": worst,
-            "ms": ms, "call_ms": call_ms, "plain_ms": plain_ms,
-            "bound_ms": bound_ms, "bound_by": bound_by,
+            "ms": ms, "ms_by": ms_by, "call_ms": call_ms,
+            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
             "library_ms": library_ms, "shape": shape["shape"],
             "shapes": [shape]}
 
@@ -1527,16 +1609,17 @@ def seeded_qkv(heads: int, kv_heads: int, s: int, d: int, rng):
                  for n in (heads, kv_heads, kv_heads))
 
 
-def check_flash_f32(rec: dict, cfg, label: str, *, batch: int, s: int,
-                    paths: str = "none") -> None:
-    """The float32 route at the shape a float32-compute prefill of
-    ``cfg`` gives it - ``batch`` prompts of ``s`` tokens, causal, no
-    window - on seeded inputs, its shape added to the route's record
-    ``rec``."""
+def check_flash_prefill(rec: dict, cfg, label: str, *, batch: int, s: int,
+                        dtype: str = "float32", paths: str = "none") -> None:
+    """The route of ``dtype`` (float32: simt; bfloat16: wgmma) at the
+    shape a prefill of ``cfg`` computing in ``dtype`` gives it - ``batch``
+    prompts of ``s`` tokens, causal, no window - on seeded inputs, its
+    shape added to the route's record ``rec``."""
     import numpy as np
-    q, k, v = seeded_qkv(batch * cfg.n_heads, batch * cfg.n_kv_heads, s,
-                         cfg.head_dim,
-                         np.random.default_rng(FLASH_F32_SEED))
+    import torch
+    q, k, v = (t.to(getattr(torch, dtype)) for t in seeded_qkv(
+        batch * cfg.n_heads, batch * cfg.n_kv_heads, s, cfg.head_dim,
+        np.random.default_rng(FLASH_F32_SEED)))
     rec["shapes"] += check_flash(q, k, v, causal=True, window=0,
                                  label=label, paths=paths)["shapes"]
 
@@ -1615,11 +1698,14 @@ def lm_serve_path(card: str):
                                window=FLASH_RAGGED["window"],
                                label="ragged"))
     del q, k, v
-    check_flash_f32(records[-1], cfg, "causal, full width",
-                    batch=LM_BATCH, s=FLASH_F32_PROMPT)
+    check_flash_prefill(records[-1], cfg, "causal, full width",
+                        batch=LM_BATCH, s=FLASH_F32_PROMPT)
     reduced = base.reduced(cfg)
-    check_flash_f32(records[-1], reduced, "the reduced float32 prefill's "
-                    "shape", batch=1, s=LM_TWIN_PROMPT, paths="14")
+    for rec in records:
+        dtype = "float32" if rec["name"].endswith("simt") else "bfloat16"
+        check_flash_prefill(rec, reduced, f"the reduced {dtype} prefill's "
+                            "shape", batch=1, s=LM_TWIN_PROMPT, dtype=dtype,
+                            paths="14")
 
     generate = lambda: eng.generate(prompts, LM_NEW)
     (first, gen_ms), launches = counted("phase 14", LM_KERNELS,
@@ -1721,13 +1807,13 @@ def stablelm_path(card: str, records: list) -> dict:
     del q, k, v
     for rec in (d160, d160_f32):
         by_name[rec["name"]]["d160"] = {
-            key: rec[key] for key in ("max_abs_err", "ms", "call_ms",
-                                      "plain_ms", "bound_ms", "bound_by",
-                                      "library_ms")}
+            key: rec[key] for key in ("max_abs_err", "ms", "ms_by",
+                                      "call_ms", "plain_ms", "bound_ms",
+                                      "bound_by", "library_ms")}
         by_name[rec["name"]]["shapes"] += rec["shapes"]
-    check_flash_f32(by_name["flash_fwd/simt"], cfg,
-                    f"{SLM_ARCH} causal, full width", batch=LM_BATCH,
-                    s=FLASH_F32_PROMPT)
+    check_flash_prefill(by_name["flash_fwd/simt"], cfg,
+                        f"{SLM_ARCH} causal, full width", batch=LM_BATCH,
+                        s=FLASH_F32_PROMPT)
 
     generate = lambda: eng.generate(prompts, LM_NEW)
     (first, gen_ms), launches = counted(f"phase 14 {SLM_ARCH}", LM_KERNELS,
@@ -1855,14 +1941,16 @@ def profile(label: str, encode, decode) -> int:
 def rank(records: list) -> None:
     """The kernels ranked by the device time their counted launches spend
     above their bound: launches x (device ms - bound ms), summed over the
-    shapes phase 3 timed (``gap_ms``); launches at shapes it did not time
-    are counted apart (``untimed_launches``)."""
+    shapes phase 3 timed by a trace (``gap_ms``); launches at shapes it
+    did not time, or timed only by CUDA events (``ms_by`` "events": host
+    work included), are counted apart (``untimed_launches``)."""
     for rec in records:
         by_shape = {}
         for seen in PATH_SHAPES_SEEN:
             for key, n in seen.get(rec["name"], {}).items():
                 by_shape[key] = by_shape.get(key, 0) + n
-        timed = {sh["shape"]: sh for sh in rec.get("shapes", [])}
+        timed = {sh["shape"]: sh for sh in rec.get("shapes", [])
+                 if sh["ms_by"] == "trace"}
         rec["launches_by_shape"] = by_shape
         rec["gap_ms"] = sum(n * (timed[k]["ms"] - timed[k]["bound_ms"])
                             for k, n in by_shape.items() if k in timed)
@@ -1873,7 +1961,8 @@ def rank(records: list) -> None:
             f"its bound over {rec['launches']} launches ("
             + ", ".join(f"{k}: {n}" for k, n in
                         rec["launches_by_shape"].items())
-            + f"; {rec['untimed_launches']} at shapes not timed)")
+            + f"; {rec['untimed_launches']} at shapes not timed by a "
+            "trace)")
 
 
 def main() -> int:

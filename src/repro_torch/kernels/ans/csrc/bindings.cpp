@@ -158,8 +158,11 @@ std::vector<Tensor> pop_dyntable_emit(const Tensor& head, const Tensor& tables,
   return {out, syms, reads};
 }
 
-// head int64[L]; table int32[L, A+1]; feed int32[S, L]
-// -> (head, syms int32[S, L], reads int32[L]).
+// The widest table row pop_table_emit takes.
+constexpr int64_t kPopTableMaxA1 = int64_t{1} << 16;
+
+// head int64[L]; table int32[L, A+1], A+1 <= 2^16; feed int32[S, L];
+// precision in [1, 16] -> (head, syms int32[S, L], reads int32[L]).
 std::vector<Tensor> pop_table_emit(const Tensor& head, const Tensor& table,
                                    const Tensor& feed, int64_t precision) {
   const torch::Device dev = card(head);
@@ -167,6 +170,15 @@ std::vector<Tensor> pop_table_emit(const Tensor& head, const Tensor& table,
   dims(feed, "feed", 2);
   const int64_t steps = feed.size(0), lanes = table.size(0),
                 a1 = table.size(1);
+  // pop_table.cu stages rows up to 4097 entries whole and a sample of
+  // wider ones, which fits its shared memory up to 2^16 entries (the most
+  // a precision-16 table holds; repro/core/ans.py cdf_to_starts).
+  TORCH_CHECK_VALUE(a1 <= kPopTableMaxA1, "kernels.ans: pop_table_emit "
+                    "takes tables of at most ", std::to_string(kPopTableMaxA1),
+                    " entries a lane, got ", std::to_string(a1));
+  TORCH_CHECK_VALUE(precision >= 1 && precision <= 16, "kernels.ans: "
+                    "pop_table_emit precision must be in [1, 16], got ",
+                    std::to_string(precision));
   need(head, "head", torch::kInt64, {lanes}, dev);
   need(table, "table", torch::kInt32, {lanes, a1}, dev);
   need(feed, "feed", torch::kInt32, {steps, lanes}, dev);

@@ -11,7 +11,13 @@ Pallas ``fori_loop``) in one thread, or in a group of threads:
                             and divide ahead of it);
   * ``pop_slots``         - ``kernel.py:92 _peek_kernel``;
   * ``pop_table_emit``    - ``kernel.py:120 _pop_table_kernel`` (one static
-                            table per lane);
+                            table per lane, walked by a group of 8, 16
+                            or 32 threads by width and lane count, G
+                            entries a round by ballot; the rows staged in shared memory - a
+                            sample of every 16th entry above 4097, the
+                            last window from device memory - and the
+                            feed rows a tile ahead; at most 2^16
+                            entries a row);
   * ``pop_dyntable_emit`` - ``kernel.py:196 _pop_dyntable_kernel`` (one
                             chain warp a block of 32 lanes, its tables
                             staged in shared memory by helper warps);

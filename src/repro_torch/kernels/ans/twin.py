@@ -132,6 +132,80 @@ def pop_table_emit(head: torch.Tensor, table: torch.Tensor,
     return h, syms, r.to(torch.int32)
 
 
+#: the widest row the table-pop kernel stages whole, and the stride of
+#: the sample it stages of wider rows (``csrc/pop_table.cu`` ``STAGED_A1``,
+#: ``SAMPLE``)
+TABLE_STAGED_A1, TABLE_SAMPLE = 4097, 16
+
+
+def table_group_walk(table: torch.Tensor, slot: torch.Tensor,
+                     precision: int, group: int
+                     ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The table-pop kernel's search (``csrc/pop_table.cu``) round for
+    round: ``group`` threads a lane (8, 16 or 32; which one the kernel's
+    launcher takes is its own choice, by width and lane count) walk
+    the row, or above ``TABLE_STAGED_A1`` entries its every
+    ``TABLE_SAMPLE``-th entry: a top round of ``group`` probes ``s0 =
+    ceil(m / group)`` apart, a probe round ``ceil(s0 / group)`` apart when
+    ``s0 > group - 1``, each moving to the sub-interval that
+    ``popc(ballot(F <= slot)) - 1`` names, then a window of ``group``
+    consecutive entries (the whole row, without the rounds above, when it
+    has at most ``group - 1``); a sampled row ends with a window over the
+    row's entries from the sample's block. Entries past the row read
+    2^precision. table [L, A+1] (non-decreasing rows), slot [L] -> (c =
+    #(F <= slot), start, next) int64[L], start and next as the kernel's
+    shuffles give them (lane ``c - 1`` or 0, lane ``c`` modulo the
+    group). Raises for rows that need more rounds (more than (group -
+    1) group^2 entries walked), and for sampled rows at groups of 16 or
+    fewer (the last window must hold a block of 16 and the entry after).
+    Used by no path: the tests hold it to ``pop_table_emit``'s search
+    and, through pops, to the reference's kernel."""
+    a1 = table.shape[1]
+    g = group
+    total = 1 << precision
+    table = table.to(torch.int64)
+    slot = slot.to(torch.int64)[:, None]
+    lanes = torch.arange(g, device=table.device)
+    rows = table[:, ::TABLE_SAMPLE] if a1 > TABLE_STAGED_A1 else table
+    m = rows.shape[1]
+    if a1 > TABLE_STAGED_A1 and g <= TABLE_SAMPLE:
+        raise ValueError(f"kernels.ans: a sampled row's last window takes "
+                         f"more than {TABLE_SAMPLE} threads, got {g}")
+
+    def at(row: torch.Tensor, pos: torch.Tensor) -> torch.Tensor:
+        n = row.shape[1]
+        got = row.gather(1, pos.clamp(0, max(n - 1, 0))) if n else \
+            torch.zeros_like(pos)
+        return torch.where(pos < n, got, total)
+
+    def count(v: torch.Tensor) -> torch.Tensor:
+        return (v <= slot).sum(1)
+
+    lo = torch.zeros(table.shape[0], dtype=torch.int64, device=table.device)
+    if m > g - 1:
+        s0 = -(-m // g)
+        top = at(rows, (lanes * s0).expand(len(lo), g))
+        lo = (count(top) - 1).clamp(min=0) * s0
+        if s0 > g - 1:
+            s1 = -(-s0 // g)
+            if s1 > g - 1:
+                raise ValueError(f"kernels.ans: a walk of {g} threads "
+                                 f"takes at most {(g - 1) * g * g} "
+                                 f"entries, got {m}")
+            lo = lo + (count(at(rows, lo[:, None] + lanes * s1)) - 1) \
+                .clamp(min=0) * s1
+    v = at(rows, lo[:, None] + lanes)
+    cnt = count(v)
+    if a1 > TABLE_STAGED_A1:
+        lo = (lo + cnt - 1).clamp(min=0) * TABLE_SAMPLE
+        v = at(table, lo[:, None] + lanes)
+        cnt = count(v)
+    below = v.gather(1, (cnt - 1).clamp(min=0)[:, None])[:, 0]
+    start = torch.where(cnt > 0, below, 0)
+    nxt = v.gather(1, (cnt % g)[:, None])[:, 0]
+    return lo + cnt, start, nxt
+
+
 def pop_dyntable_emit(head: torch.Tensor, tables: torch.Tensor,
                       feed: torch.Tensor, precision: int
                       ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:

@@ -132,6 +132,50 @@ def test_table_kernels_match_twin(kernel, lanes, a1, steps):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("precision", [12, 16])
+@pytest.mark.parametrize("lanes,a1", [
+    (lanes, a1) for a1 in (3, 13, 257, 4097)
+    for lanes in (1, 3, 130, 4096, 4101)] + [
+    (2640, 257), (2641, 257), (4096, 56), (4096, 57), (4096, 448),
+    (4096, 449), (130, 31), (4096, 31), (130, 4098), (130, 15872),
+    (130, 15873), (130, 1 << 16)])
+def test_table_pop_widths_match_twin(kernel, lanes, a1, precision):
+    """Every width band of the table pop's launcher (groups of 8, 16 and
+    32; the window alone, top round and window, a probe round between - at
+    more than 2640 lanes in groups of 8 from 57 to 448 entries -, a staged
+    sample of a 2^16-entry row) over 70 steps (off its 32-step
+    tiles), with slots at 0 and 2^p - 1 and heads near 2^32, all-zero
+    rows and zero-frequency symbols, against the plain version on the
+    card. At precision 12 the tables are the precision-16 ones shifted
+    right by 4 (more equal starts)."""
+    rng = np.random.default_rng(lanes + a1 + precision)
+    head = rng.integers(1 << 16, 1 << 32, lanes, dtype=np.int64)
+    head[::4] = (1 << 32) - 1 - rng.integers(0, 1 << 12, len(head[::4]))
+    head[1::4] &= ~((1 << precision) - 1)
+    head[2::4] |= (1 << precision) - 1
+    table = _table(rng, lanes, a1) >> (16 - precision)
+    table[5::7] = 0
+    feed = rng.integers(0, 1 << 16, (70, lanes)).astype(np.int32)
+    args = [torch.from_numpy(head).cuda(), table.cuda(),
+            torch.from_numpy(feed).cuda(), precision]
+    got = kernel.pop_table_emit(*args)
+    want = twin.pop_table_emit(*args)
+    for a, b in zip(got, want):
+        assert torch.equal(a.to(torch.int64), b.to(torch.int64))
+
+
+@pytest.mark.cuda
+def test_table_pop_refuses_rows_past_its_widest(kernel):
+    head = torch.zeros(2, dtype=torch.int64, device="cuda")
+    feed = torch.zeros((4, 2), dtype=torch.int32, device="cuda")
+    wide = torch.zeros((2, (1 << 16) + 1), dtype=torch.int32, device="cuda")
+    with pytest.raises(ValueError, match="at most 65536 entries"):
+        kernel.pop_table_emit(head, wide, feed, 16)
+    with pytest.raises(ValueError, match="precision must be in"):
+        kernel.pop_table_emit(head, wide[:, :3].contiguous(), feed, 17)
+
+
+@pytest.mark.cuda
 def test_categorical_stream_on_the_card_equals_the_cpu_twin(kernel):
     rng = np.random.default_rng(3)
     logits = torch.from_numpy(rng.normal(size=(64, 256)).astype(np.float32))

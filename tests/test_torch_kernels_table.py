@@ -59,7 +59,13 @@ def _words(x):
     return np.asarray(x).astype(np.int64) & 0xFFFFFFFF
 
 
-CASES = [(1, 3, 1), (3, 13, 8), (130, 257, 64), (128, 13, 64), (7, 257, 33)]
+# (lanes, A+1, steps): the table pop kernel's width bands (``csrc/
+# pop_table.cu``: the window alone at 3 and 13 - groups of 8 and 16 -,
+# top round and window at 257, a probe round between at 4097, a staged
+# sample above it at 4500), step counts off its 32-step tiles.
+CASES = [(1, 3, 1), (3, 13, 8), (130, 257, 64), (128, 13, 64), (7, 257, 33),
+         (130, 3, 70), (1, 13, 33), (3, 257, 70), (3, 4097, 33),
+         (1, 4500, 33)]
 
 
 @pytest.mark.parametrize("interpret", [False, True])
@@ -90,6 +96,91 @@ def test_pop_table_emit_on_zero_rows_and_equal_starts():
     for g, w in zip(got, want):
         np.testing.assert_array_equal(_words(g), _words(w))
     assert got[1][0, 1] == 1 and got[1][0, 2] == 2
+    # the kernel's group walk, at every group width, on the same rows
+    for group in (8, 16, 32):
+        walked = walk_pop_emit(_t(head), _t(table), _t(feed), 16, group)
+        for g, w in zip(walked, want):
+            np.testing.assert_array_equal(_words(g), _words(w))
+
+
+def walk_pop_emit(head, table, feed, precision, group):
+    """``twin.pop_table_emit`` with its search done as the kernel walks it
+    (``twin.table_group_walk``)."""
+    h = head.to(torch.int64)
+    r = torch.zeros_like(h)
+    syms = torch.zeros(feed.shape, dtype=torch.int32)
+    for t in range(feed.shape[0]):
+        slot = h & ((1 << precision) - 1)
+        c, start, nxt = twin.table_group_walk(table, slot, precision, group)
+        syms[t] = (c - 1).to(torch.int32)
+        h = ((nxt - start) * (h >> precision) + slot - start) & 0xFFFFFFFF
+        h, r = twin._read(h, r, feed)
+    return h, syms, r.to(torch.int32)
+
+
+@pytest.mark.parametrize("precision", [12, 16])
+@pytest.mark.parametrize("lanes,a1,steps,group", [
+    (1, 3, 33, 8), (130, 13, 70, 16), (3, 257, 70, 32), (130, 257, 33, 32),
+    (3, 257, 70, 8), (3, 4097, 33, 32), (1, 4500, 33, 32)])
+def test_table_group_walk_pops_match_reference(lanes, a1, steps, group,
+                                               precision):
+    """Pops through the kernel's group walk, at each round plan its
+    launcher takes (the window alone in groups of 8 and 16; top round and
+    window in 32; top, probe and window in 8 and in 32; a sampled row),
+    and the twin's, against the Pallas kernel in interpret mode, word for
+    word, the first slots at 0 and 2^p - 1 among random ones; at
+    precision 12 the widest rows repeat most starts (zero-frequency
+    symbols)."""
+    d = table_inputs(lanes, a1, steps, precision)
+    mask = np.uint32((1 << precision) - 1)
+    d["head"][0::3] &= ~mask
+    d["head"][1::3] |= mask
+    want = ref_kernel.pop_table_emit(
+        jnp.asarray(d["head"]), jnp.asarray(d["table"]),
+        jnp.asarray(d["feed"]), precision, interpret=True, lane_tile=lanes)
+    args = (_t(d["head"]), _t(d["table"]), _t(d["feed"]), precision)
+    for got in (walk_pop_emit(*args, group), twin.pop_table_emit(*args)):
+        for g, w in zip(got, want):
+            np.testing.assert_array_equal(_words(g), _words(w))
+
+
+@pytest.mark.parametrize("a1,group", [
+    (3, 8), (3, 32), (13, 16), (13, 32), (40, 8), (257, 8), (448, 8),
+    (257, 16),
+    (257, 32), (3840, 16), (4097, 32), (4500, 32), (15872, 32),
+    (1 << 16, 32)])
+def test_table_group_walk_finds_the_branchless_search(a1, group):
+    """Each round plan of the walk (the window alone; top round and
+    window; top, probe and window; a sampled row above 4097 entries), at
+    group widths the kernel uses and others, gives the reference's count,
+    start and next on slots 0 and 2^16 - 1, slots on the row's entries and
+    random ones, over random rows with zero-frequency symbols and an
+    all-zero row."""
+    d = table_inputs(4, a1, 1)
+    table = _t(d["table"])
+    table[3] = 0
+    rng = np.random.default_rng(a1 + group)
+    slots = [np.zeros(4, np.int64), np.full(4, (1 << 16) - 1),
+             rng.integers(0, 1 << 16, 4)]
+    slots += [np.minimum(table[np.arange(4), rng.integers(0, a1, 4)]
+                         .numpy(), (1 << 16) - 1) for _ in range(6)]
+    for slot in map(torch.from_numpy, slots):
+        le = table <= slot[:, None]
+        c, start, nxt = twin.table_group_walk(table, slot, 16, group)
+        assert torch.equal(c, le.sum(1))
+        assert torch.equal(start, torch.where(le, table, 0).amax(1))
+        assert torch.equal(nxt, torch.where(le, 1 << 16, table).amin(1))
+
+
+def test_table_group_walk_refuses_walks_past_its_rounds():
+    """Rows that three rounds of 16 cannot walk, and sampled rows in a
+    group too narrow for a block of the sample and the entry after."""
+    with pytest.raises(ValueError, match="at most 3840 entries"):
+        twin.table_group_walk(torch.zeros((1, 3841), dtype=torch.int64),
+                              torch.zeros(1, dtype=torch.int64), 16, 16)
+    with pytest.raises(ValueError, match="more than 16 threads"):
+        twin.table_group_walk(torch.zeros((1, 4500), dtype=torch.int64),
+                              torch.zeros(1, dtype=torch.int64), 16, 16)
 
 
 @pytest.mark.parametrize("precision", [8, 12, 16])

@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
-"""Time the grid pops, the dyntable pop, the posterior bucketize, the
-push-side grid starts and the float32 flash-attention forward of two
-checkouts of this repo on one GPU, in turns, and check that both write
-the same outputs (the flash forward: within its 2e-5 tolerance).
+"""Time the grid pops, the dyntable pop, the table pop, the posterior
+bucketize, the push-side grid starts and the float32 flash-attention
+forward of two checkouts of this repo on one GPU, in turns, and check
+that both write the same outputs (the flash forward: within its 2e-5
+tolerance).
 
     python3 tools/compare_pops.py OTHER [--reps 20]
 
@@ -11,14 +12,16 @@ parent commit unpacked into ``build/parent``. Each turn is a process of
 its own that imports ``repro_torch`` from one checkout's ``src``, builds
 that checkout's kernels into its ``build/kernels`` and calls its public
 wrappers (``kernels.ans.kernel.pop_grid_emit``, ``pop_dyntable_emit``,
-``grid_starts``, ``kernels.bucketize.kernel.bucketize``,
+``pop_table_emit``, ``grid_starts``, ``kernels.bucketize.kernel.bucketize``,
 ``kernels.flash.kernel.flash_fwd``), so the two checkouts' bindings may
 differ. The turns run OTHER, this, this, OTHER. The inputs are
 ``chip_smoke.py``'s phase 3 and phase 14 draws: the gaussian and
 logistic grid pops at 4096 lanes x 40 steps (lat_bits 10), the gaussian
 at 32 lanes x 392 steps (phase 13's first level), the uniform pop at
 32 x 392, 1024 x 40 (phases 5-7 and 10) and 4096 x 40, the dyntable pop
-at 4096 and 32 lanes x 784 steps (A+1 = 3), the bucketize at 256 lanes
+at 4096 and 32 lanes x 784 steps (A+1 = 3), the table pop at phase 8's
+4096 lanes x 64 steps (A+1 = 257) and at each of ``chip_smoke.py``'s
+``TABLE_CASES`` (A+1 x lanes, 70 steps), the bucketize at 256 lanes
 (phase 12's) and 4096 at lat_bits 10 and 4097 at lat_bits 12, the
 gaussian starts at every path shape (256 x 1, 32 x 392, 1024 x 40,
 512 x 40, 1024 x 784) and the logistic at 4096 x 40, and the float32
@@ -28,10 +31,13 @@ cases ([28, 4096, 64] on 4 key heads, [64, 4096, 160] on 16). Each
 case's time is the device time of one launch of its kernel
 (``torch.profiler``, summed over ``--reps`` calls - 5 for the flash
 forward - after a warm-up and divided by the launches), and beside it
-the time per call (host + device, CUDA events). Prints the card, a line
-a case, and a JSON object of the times last; exits non-zero when the
-outputs differ (the flash forward: when a turn's output is not within
-rtol = atol = 2e-5 of the first turn's).
+the time per call (host + device, CUDA events). A turn whose traces lose
+a case's launches times it by CUDA events instead (``ms_by`` "events",
+host work included, ``chip_smoke.device_ms``): that case is not
+compared (``this_over_other`` null). Prints the card, a line a case, and
+a JSON object of the times last; exits non-zero when the outputs differ
+(the flash forward: when a turn's output is not within rtol = atol =
+2e-5 of the first turn's) or a case is not compared.
 """
 
 from __future__ import annotations
@@ -103,6 +109,14 @@ def worker(src: str, out: str, reps: int) -> None:
                    S.KERNEL_FN["pop_dyntable_emit"])
                   for label, a in ((f"{S.LANES}x784", dyn),
                                    (f"{n}x784", dyn_n))})
+    table_fn = S.KERNEL_FN["pop_table_emit"]
+    cases[f"pop_table_emit {S.LANES}x{S.TABLE_STEPS} (A+1 257)"] = (
+        lambda: K.pop_table_emit(g["head"], g["table"], g["feed_t"], 16),
+        table_fn)
+    for a1, lanes in S.TABLE_CASES:
+        t = (*S.table_pop_inputs(lanes, S.DYN_STEPS, a1, lanes + a1), 16)
+        cases[f"pop_table_emit {lanes}x{S.DYN_STEPS} (A+1 {a1})"] = (
+            lambda t=t: K.pop_table_emit(*t), table_fn)
     for lanes, lat_bits in ((256, 10), (S.LANES, 10), (S.LANES + 1, 12)):
         b = (*S.bucketize_inputs(lanes),
              discretize.edge_table(lat_bits, "cuda"), lat_bits, 16)
@@ -131,7 +145,8 @@ def worker(src: str, out: str, reps: int) -> None:
         for i, t in enumerate(call()):
             arrays[f"{name}/{i}"] = t.cpu().numpy()
         n = FLASH_REPS if name.startswith("flash_fwd") else reps
-        times[name] = {"ms": S.device_ms(call, fn, n),
+        ms, ms_by = S.device_ms(call, fn, n)
+        times[name] = {"ms": ms, "ms_by": ms_by,
                        "call_ms": S.cuda_ms(call, n)}
     np.savez(out + ".npz", **arrays)
     with open(out + ".json", "w") as f:
@@ -171,28 +186,38 @@ def main() -> int:
             with np.load(out + ".npz") as z:
                 arrays = {k: z[k] for k in z.files}
             res.append((who, times, arrays))
-    bad = 0
+    bad = untraced = 0
     summary = {}
     for name in res[0][1]:
         t = [r[1][name]["ms"] for r in res]
+        by = [r[1][name]["ms_by"] for r in res]
         c = [r[1][name]["call_ms"] for r in res]
         diff = sum(differ(name, r[2][k], res[0][2][k])
                    for r in res[1:] for k in res[0][2]
                    if k.startswith(name + "/"))
         bad += diff
+        # A time by CUDA events (a turn whose traces lost the launches)
+        # holds host work: it is kept, but compared with nothing.
+        traced = all(b == "trace" for b in by)
+        untraced += not traced
         other, this = (t[0] + t[3]) / 2, (t[1] + t[2]) / 2
+        ratio = this / other if traced else None
         summary[name] = {"other_ms": [t[0], t[3]], "this_ms": [t[1], t[2]],
+                         "other_ms_by": [by[0], by[3]],
+                         "this_ms_by": [by[1], by[2]],
                          "other_call_ms": [c[0], c[3]],
                          "this_call_ms": [c[1], c[2]],
-                         "this_over_other": this / other,
-                         "mismatches": diff}
+                         "this_over_other": ratio, "mismatches": diff}
+        verdict = f"this / other {ratio:.3f}" if traced else \
+            "not compared: a turn's time is by CUDA events (" + \
+            "/".join(by) + ")"
         print(f"{name}: mismatches {diff}; device ms a launch: other "
-              f"{t[0]:.5f}/{t[3]:.5f}, this {t[1]:.5f}/{t[2]:.5f}, this / "
-              f"other {this / other:.3f}; per call (host + device): other "
+              f"{t[0]:.5f}/{t[3]:.5f}, this {t[1]:.5f}/{t[2]:.5f}, "
+              f"{verdict}; per call (host + device): other "
               f"{c[0]:.4f}/{c[3]:.4f}, this {c[1]:.4f}/{c[2]:.4f}",
               flush=True)
     print(json.dumps({"card": smi, "cases": summary}))
-    return 1 if bad else 0
+    return 1 if bad or untraced else 0
 
 
 if __name__ == "__main__":
